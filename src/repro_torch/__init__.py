@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of the IPKMeans system (``repro``'s JAX package is the
+reference it is held against).  Imports ``torch`` and ``numpy`` only."""
+from repro_torch.core import (IPKMeansConfig, IPKMeansResult, KMeansParams,
+                              KMeansResult, ipkmeans, kmeans, kmeans_batched)
+
+__all__ = ["IPKMeansConfig", "IPKMeansResult", "KMeansParams",
+           "KMeansResult", "ipkmeans", "kmeans", "kmeans_batched"]

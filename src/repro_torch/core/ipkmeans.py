@@ -1,0 +1,151 @@
+"""IPKMeans — the paper's contribution, the counterpart of the
+single-process ``repro.core.ipkmeans.ipkmeans``.
+
+Three stages (Section 2):
+  S1  partition_dataset : k-d tree median splits + labeling, then a scatter
+      pack into an (M, S, d) stack plus mask
+  S2  per-subset k-means: M independent Lloyd solves to convergence, one
+      launch per iteration for the whole stack (``backend="fused"``)
+  S3  merge             : min-ASSE selection, then the SSE over the dataset
+
+This slice covers ``partition="kd_axis"``, ``s1`` ``"auto"``/``"sort"``,
+``pack="scatter"``, ``merge="min_asse"`` and ``init="given"``; every other
+value raises ``NotImplementedError`` naming the slice that brings it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import kdtree, merge, metrics
+from repro_torch.core.kmeans import (KMeansParams, KMeansResult, check_params,
+                                     kmeans_batched)
+from repro_torch.device import as_f32, resolve_device
+
+REDUCE_MODES = ("exact", "int8ef")
+S1_MODES = ("auto", "sort", "histogram")
+
+
+@dataclasses.dataclass(frozen=True)
+class IPKMeansConfig:
+    num_clusters: int                       # K — final clusters wanted
+    num_subsets: int                        # M — parallel "reducers"
+    partition: str = "kd_axis"              # 'kd_axis' (later: 'kd_random',
+                                            # 'random')
+    merge: str = "min_asse"                 # 'min_asse' (later:
+                                            # 'hierarchical')
+    pack: str = "scatter"                   # 'scatter' (later: 'sorted',
+                                            # 'a2a')
+    reduce: str = "exact"                   # cross-pod reduction; the
+                                            # single-process path has none
+    s1: str = "auto"                        # 'auto' | 'sort' (later:
+                                            # 'histogram')
+    leaf_capacity: int | None = None        # default: num_subsets (paper)
+    label_axis: int = 0
+    kmeans: KMeansParams = KMeansParams()
+
+    def __post_init__(self):
+        if self.reduce not in REDUCE_MODES:
+            raise ValueError(f"unknown reduce: {self.reduce!r} "
+                             f"(expected one of {REDUCE_MODES})")
+        if self.s1 not in S1_MODES:
+            raise ValueError(f"unknown s1: {self.s1!r} "
+                             f"(expected one of {S1_MODES})")
+
+    def with_backend(self, backend: str) -> "IPKMeansConfig":
+        """Same config, different Lloyd engine ('eager' | 'fused')."""
+        return dataclasses.replace(
+            self, kmeans=self.kmeans._replace(backend=backend))
+
+    def subset_capacity(self, n: int) -> int:
+        """Static bound on points per subset (tensor packing size)."""
+        if self.partition == "random":
+            return -(-n // self.num_subsets)                   # ceil
+        cap = self.leaf_capacity or self.num_subsets
+        depth = kdtree.required_depth(n, cap)
+        # leaves hold <= ceil(n / 2^depth) points; labels wrap mod M, so a
+        # leaf contributes <= ceil(max_leaf / M) points to each subset
+        max_leaf = -(-n // (2 ** depth))
+        return (2 ** depth) * (-(-max_leaf // self.num_subsets))
+
+
+class IPKMeansResult(NamedTuple):
+    centroids: torch.Tensor                 # (K, d) final centroids
+    sse: torch.Tensor                       # () SSE over the FULL dataset
+    intermediate: torch.Tensor              # (M, K, d) per-subset centroids
+    asses: torch.Tensor                     # (M,) per-subset ASSE
+    subset_iters: torch.Tensor              # (M,) Lloyd iterations per subset
+    kd_depth: int                           # tree levels ("jobs")
+
+
+def check_config(cfg: IPKMeansConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not cover."""
+    later = "a later slice of the port"
+    if cfg.partition != "kd_axis":
+        raise NotImplementedError(
+            f"partition={cfg.partition!r} comes in {later} (random keys "
+            f"from a torch.Generator)")
+    if cfg.s1 == "histogram":
+        raise NotImplementedError(
+            f"s1='histogram' comes in {later} (the histogram S1)")
+    if cfg.pack not in ("scatter", "sorted", "a2a"):
+        raise ValueError(f"unknown pack: {cfg.pack!r} "
+                         f"(expected 'scatter' | 'sorted' | 'a2a')")
+    if cfg.pack != "scatter":
+        raise NotImplementedError(f"pack={cfg.pack!r} comes in {later}")
+    if cfg.merge == "hierarchical":
+        raise NotImplementedError(f"merge='hierarchical' comes in {later}")
+    if cfg.merge != "min_asse":
+        raise ValueError(f"unknown merge: {cfg.merge}")
+    check_params(cfg.kmeans)
+
+
+def _check_pack_complete(n: int, masks: torch.Tensor, pack: str) -> None:
+    """Raise if the pack lost points: a dropped point silently biases every
+    downstream centroid."""
+    lost = n - int(masks.sum())
+    if lost:
+        raise ValueError(
+            f"pack={pack!r} dropped {lost} of {n} points (packed mask counts "
+            f"{n - lost}): subset capacity is too small for this partition's "
+            "skew")
+
+
+def _partition_and_pack(points: torch.Tensor, cfg: IPKMeansConfig):
+    """S1: partition, then scatter each subset into its reducer's row."""
+    part = kdtree.partition_dataset(
+        points, cfg.num_subsets, leaf_capacity=cfg.leaf_capacity,
+        strategy=cfg.partition, label_axis=cfg.label_axis)
+    n = points.shape[0]
+    subsets, masks = kdtree.pack_subsets(
+        points, part.subset_ids, cfg.num_subsets, cfg.subset_capacity(n))
+    _check_pack_complete(n, masks, cfg.pack)
+    return part, subsets, masks
+
+
+def _merge_stage(points: torch.Tensor, res: KMeansResult):
+    final = merge.min_asse_merge(res.centroids, res.asse)
+    return final, metrics.sse(points, final)
+
+
+def ipkmeans(points, init_centroids, cfg: IPKMeansConfig, *,
+             device=None) -> IPKMeansResult:
+    """Single-process IPKMeans: ``points (n, d)``, the shared seeds
+    ``init_centroids (K, d)`` every reducer starts from, and ``cfg``.
+
+    Runs on ``device`` (default: CUDA, raising without a card).  Each stage
+    is also reachable alone (``_partition_and_pack``, ``kmeans_batched``,
+    ``_merge_stage``), which is how ``chip_smoke.py`` times them.
+    """
+    check_config(cfg)
+    dev = resolve_device(device)
+    x = as_f32(points, dev)
+    part, subsets, masks = _partition_and_pack(x, cfg)
+    res = kmeans_batched(subsets, masks, init_centroids, cfg.kmeans,
+                         device=dev)
+    final, total_sse = _merge_stage(x, res)
+    return IPKMeansResult(centroids=final, sse=total_sse,
+                          intermediate=res.centroids, asses=res.asse,
+                          subset_iters=res.iters, kd_depth=part.depth)

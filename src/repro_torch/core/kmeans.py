@@ -1,0 +1,99 @@
+"""Single-subset and stacked Lloyd's k-means, the counterpart of
+``repro.core.kmeans``.
+
+The solve is delegated whole to a :class:`repro_torch.kernels.engine
+.LloydEngine` looked up from ``params.backend``: ``eager`` (plain PyTorch
+oracles, the reference's ``jnp`` role) or ``fused`` (the hand-written fused
+kernel).  Seeding other than ``init="given"`` comes in a later slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import metrics
+from repro_torch.device import as_f32, resolve_device
+from repro_torch.kernels import engine as engines
+
+
+class KMeansParams(NamedTuple):
+    max_iters: int = 300
+    tol: float = 1e-6             # paper: "until centroids stop moving"
+    backend: str = "eager"        # 'eager' | 'fused' (later: 'twopass',
+                                  # 'resident', 'batched', 'tuned')
+    reseed_empty: bool = False    # re-seed empty clusters at farthest points
+    prune: str = "none"           # 'none' (later: 'bounds')
+    init: str = "given"           # 'given' (later: 'sample' | 'kmeans++' |
+                                  # 'kmeans||')
+
+
+class KMeansResult(NamedTuple):
+    centroids: torch.Tensor       # (k, d) or (M, k, d)
+    sse: torch.Tensor             # () or (M,) total SSE per subset
+    asse: torch.Tensor            # () or (M,) average SSE (merge criterion)
+    iters: torch.Tensor           # () or (M,) int32 Lloyd iterations
+    converged: torch.Tensor       # () or (M,) bool
+
+
+def check_params(params: KMeansParams) -> None:
+    """Raise for what this slice of the port does not cover."""
+    if params.init != "given":
+        raise NotImplementedError(
+            f"init={params.init!r}: seeding (core/init.py) comes in a later "
+            f"slice of the port; pass init='given' with init_centroids")
+    engines.check_prune(params.prune)
+    engines.get_engine(params.backend)
+
+
+def _asse(total_sse: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    # empty shards must never win the min-ASSE merge: ASSE = +inf
+    return torch.where(cnt > 0.0, total_sse / torch.clamp(cnt, min=1.0),
+                       torch.inf)
+
+
+def kmeans(points, init_centroids, mask=None,
+           params: KMeansParams = KMeansParams(), *,
+           device=None) -> KMeansResult:
+    """Run Lloyd's algorithm to convergence on one subset.
+
+    ``points (n, d)``, ``init_centroids (k, d)``, optional ``mask (n,)``
+    (False rows are padding and ignored).  Runs on ``device`` (default:
+    CUDA, raising without a card).
+    """
+    check_params(params)
+    dev = resolve_device(device)
+    x = as_f32(points, dev)
+    c0 = as_f32(init_centroids, dev)
+    w = None if mask is None else as_f32(mask, dev)
+    engine = engines.get_engine(params.backend)
+    final_c, total, iters, conv = engine.solve(
+        x, c0, w, max_iters=params.max_iters, tol=params.tol,
+        reseed_empty=params.reseed_empty, prune=params.prune)
+    cnt = metrics.masked_count(w, x.shape[0], dev)
+    return KMeansResult(final_c, total, _asse(total, cnt), iters, conv)
+
+
+def kmeans_batched(subsets, masks, init_centroids,
+                   params: KMeansParams = KMeansParams(), *,
+                   device=None) -> KMeansResult:
+    """A stack of complete k-means solves — ``(M, S, d)`` + ``(M, S)`` with
+    the same ``(k, d)`` seeds for every subset, as in the paper.
+
+    Empty (all-padding) subsets keep the reference's contract: ASSE = +inf,
+    so they never win the min-ASSE merge.
+    """
+    check_params(params)
+    dev = resolve_device(device)
+    x = as_f32(subsets, dev)
+    c0 = as_f32(init_centroids, dev)
+    w = None if masks is None else as_f32(masks, dev)
+    engine = engines.get_engine(params.backend)
+    final_c, total, iters, conv = engine.solve_batched(
+        x, c0, w, max_iters=params.max_iters, tol=params.tol,
+        reseed_empty=params.reseed_empty, prune=params.prune)
+    if w is None:
+        cnt = torch.full((x.shape[0],), float(x.shape[1]), device=dev)
+    else:
+        cnt = torch.sum(w, dim=1)
+    return KMeansResult(final_c, total, _asse(total, cnt), iters, conv)

@@ -1,0 +1,78 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/*.cu`` file is compiled on its own by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, under ``build/repro_torch/``
+at the root of the checkout (a git-ignored directory).  The library name
+carries a hash of the source and the flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is.  A failed build raises; nothing here
+runs when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+# seconds each source took to build in this process (0.0 when it was loaded
+# from an earlier build): read by chip_smoke.py
+build_seconds: dict[str, float] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the port's CUDA kernels")
+
+
+def library_path(source: str) -> Path:
+    src = (CSRC / source).read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(source).stem}-{tag}.so"
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` unless a build of this exact text exists."""
+    out = library_path(source)
+    if out.exists():
+        build_seconds.setdefault(source, 0.0)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {source} (exit "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    build_seconds[source] = time.perf_counter() - t0
+    return out
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built on first call."""
+    with _lock:
+        if source not in _loaded:
+            _loaded[source] = ctypes.CDLL(str(build(source)))
+        return _loaded[source]

@@ -1,0 +1,225 @@
+"""LloydEngine: the one place backend selection happens.
+
+Counterpart of ``repro.kernels.engine``.  The reference's engines work on
+one subset and a stack is a ``jax.vmap`` of them; here the lane dimension is
+written out, so every engine method takes a stack, ``points (M,S,d)``,
+``centroids (M,k,d)``, ``weights (M,S)`` or ``None``, and an optional
+``lanes (L,)`` int32 naming the lanes to work on (all of them when
+``None``).  Outputs have one row per listed lane.
+
+  * ``step(points, centroids, weights, lanes) -> (sums (L,k,d), counts
+    (L,k), sse (L,))`` — one Lloyd pass.
+  * ``assign(points, centroids, lanes) -> (labels (L,S) i32, mind (L,S))``.
+  * ``sse(points, centroids, weights, lanes) -> (L,)``.
+  * ``solve_batched(subsets, init, weights, ...) -> (centroids (M,k,d), sse
+    (M,), iters (M,) i32, converged (M,) bool)`` — the reference's vmap of a
+    ``lax.while_loop``, as a host loop over launches on the active lanes.
+  * ``solve(points, init, weights, ...)`` — one subset, a stack of one.
+
+Engines registered: ``eager`` (the reference's ``jnp`` role: plain PyTorch
+oracles) and ``fused`` (the hand-written fused kernel).  The reference's
+other engines raise ``NotImplementedError`` naming the slice that ports them.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+_REGISTRY: dict[str, "LloydEngine"] = {}
+
+# engines of the reference that later slices of the port bring, by the
+# port's name (``jnp``/``pallas`` roles become ``eager``/``twopass``)
+LATER = {
+    "batched": "the next slice (the batched megakernel)",
+    "resident": "the next slice (resident, the M=1 lane of the batched "
+                "megakernel)",
+    "tuned": "a later slice (kernel tuning)",
+    "twopass": "a later slice (the assign and centroid-update kernels)",
+    "pallas": "a later slice (the assign and centroid-update kernels, as "
+              "the 'twopass' engine)",
+}
+
+
+def register(engine: "LloydEngine") -> "LloydEngine":
+    _REGISTRY[engine.name] = engine
+    return engine
+
+
+def get_engine(name: str) -> "LloydEngine":
+    if name in LATER:
+        raise NotImplementedError(
+            f"backend {name!r} is not ported yet: it comes in {LATER[name]}")
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown backend: {name!r} "
+                         f"(expected one of {tuple(_REGISTRY)})")
+    return _REGISTRY[name]
+
+
+def available() -> tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
+def check_prune(prune: str) -> None:
+    if prune == "bounds":
+        raise NotImplementedError(
+            "prune='bounds' comes with the whole-solve kernels in the next "
+            "slice")
+    if prune != "none":
+        raise ValueError(f"unknown prune: {prune!r} "
+                         f"(expected 'none' | 'bounds')")
+
+
+def _all_lanes(points, lanes):
+    if lanes is None:
+        return torch.arange(points.shape[0], dtype=torch.int32,
+                            device=points.device)
+    return lanes
+
+
+def reseed_empty_clusters(engine: "LloydEngine", points, weights,
+                          centroids, counts, lanes=None):
+    """Re-seed zero-count centroids at the farthest in-subset points.
+
+    ``centroids`` is the whole ``(M,k,d)`` stack; ``counts (L,k)`` has one row
+    per listed lane.  The ``e``-th empty cluster of a lane takes its
+    ``e``-th farthest point (``ref.reseed_rows``).  Only lanes with an empty
+    cluster are scored, one assign launch for all of them; the reference's
+    ``lax.cond`` is a select under vmap, so lanes without one keep their
+    centroids either way.  The candidate budget is ``min(k, S)`` with ``S``
+    the padded capacity; padded rows drop out through their ``-inf`` score.
+
+    Updates ``centroids`` in place (the stack is the solve's own state) and
+    returns it.
+    """
+    lanes = _all_lanes(points, lanes)
+    k = centroids.shape[1]
+    empty = counts <= 0.0
+    need = torch.any(empty, dim=1)
+    if not bool(torch.any(need)):
+        return centroids
+    sub = lanes[need]
+    emp = empty[need]
+    kk = min(k, points.shape[1])
+    _, mind = engine.assign(points, centroids, sub)
+    sel = sub.long()
+    w = (torch.ones_like(mind) if weights is None else weights[sel])
+    score = torch.where(w > 0.0, mind, -torch.inf)
+    take, rows = ref.reseed_rows(score, emp, kk)
+    picks = points[sel.unsqueeze(1), rows]                       # (Ln,k,d)
+    centroids[sel] = torch.where(take.unsqueeze(-1), picks, centroids[sel])
+    return centroids
+
+
+class LloydEngine:
+    """Base engine: subclasses fill in ``step``/``assign``; ``solve``,
+    ``solve_batched`` and ``sse`` are built on them."""
+
+    name: str = "?"
+
+    def step(self, points, centroids, weights=None, lanes=None):
+        raise NotImplementedError
+
+    def assign(self, points, centroids, lanes=None):
+        raise NotImplementedError
+
+    def sse(self, points, centroids, weights=None, lanes=None):
+        """Weighted SSE per lane; default: one ``assign`` pass."""
+        lanes = _all_lanes(points, lanes)
+        _, mind = self.assign(points, centroids, lanes)
+        if weights is None:
+            return torch.sum(mind, dim=1)
+        return torch.sum(weights[lanes.long()].float() * mind, dim=1)
+
+    def solve(self, points, init_centroids, weights=None, *,
+              max_iters: int, tol: float, reseed_empty: bool = False,
+              prune: str = "none"):
+        """Lloyd to convergence on one subset -> (centroids (k,d), sse (),
+        iters () i32, converged () bool)."""
+        c, s, it, conv = self.solve_batched(
+            points.unsqueeze(0), init_centroids,
+            None if weights is None else weights.unsqueeze(0),
+            max_iters=max_iters, tol=tol, reseed_empty=reseed_empty,
+            prune=prune)
+        return c[0], s[0], it[0], conv[0]
+
+    def solve_batched(self, subsets, init_centroids, weights=None, *,
+                      max_iters: int, tol: float, reseed_empty: bool = False,
+                      prune: str = "none"):
+        """A stack of solves: (M,S,d),(k,d)[,(M,S)] -> (centroids (M,k,d),
+        sse (M,), iters (M,) i32, converged (M,) bool).
+
+        The reference vmaps a ``lax.while_loop``; a lane there keeps its
+        state once ``not (it < max_iters and shift > tol)``.  Here each trip
+        of a host loop runs one batched ``step`` over the lanes still
+        active, ``divide_or_keep``, the reseed of lanes with an empty
+        cluster, and the per-lane ``centroid_shift``; frozen lanes are not
+        touched again, so they keep their centroids and ``iters`` exactly.
+        One host sync per trip (the active-lane list).  After the loop one
+        more pass per lane gives the SSE.
+        """
+        from repro_torch.core.metrics import centroid_shift
+        check_prune(prune)
+        m = subsets.shape[0]
+        dev = subsets.device
+        k, d = init_centroids.shape[-2:]
+        # the solve's own state, updated in place: never the caller's seeds
+        c = torch.empty((m, k, d), dtype=torch.float32, device=dev)
+        c.copy_(init_centroids)
+        iters = torch.zeros(m, dtype=torch.int32, device=dev)
+        shift = torch.full((m,), torch.inf, dtype=torch.float32, device=dev)
+        while True:
+            active = (iters < max_iters) & (shift > tol)
+            lanes = torch.nonzero(active).flatten().to(torch.int32)
+            if lanes.numel() == 0:
+                break
+            sel = lanes.long()
+            sums, counts, _ = self.step(subsets, c, weights, lanes)
+            old = c[sel]
+            c[sel] = ref.divide_or_keep(sums, counts, old)
+            if reseed_empty:
+                reseed_empty_clusters(self, subsets, weights, c, counts,
+                                      lanes)
+            shift[sel] = centroid_shift(c[sel], old)
+            iters[sel] += 1
+        total = self.sse(subsets, c, weights)
+        return c, total, iters, shift <= tol
+
+
+class EagerEngine(LloydEngine):
+    """Plain PyTorch oracles (the reference's ``jnp`` engine): ground truth
+    for every other engine."""
+
+    name = "eager"
+
+    def step(self, points, centroids, weights=None, lanes=None):
+        sel = _all_lanes(points, lanes).long()
+        w = None if weights is None else weights[sel]
+        return ref.lloyd_step_ref(points[sel], centroids[sel], w)
+
+    def assign(self, points, centroids, lanes=None):
+        sel = _all_lanes(points, lanes).long()
+        return ref.assign_ref(points[sel], centroids[sel])
+
+
+class FusedEngine(LloydEngine):
+    """The fused kernel: one pass over the points per iteration, one launch
+    per iteration for the whole stack."""
+
+    name = "fused"
+
+    def step(self, points, centroids, weights=None, lanes=None):
+        from repro_torch.kernels import ops
+        return ops.lloyd_step_fused(points, centroids, weights, lanes=lanes)
+
+    def assign(self, points, centroids, lanes=None):
+        from repro_torch.kernels import ops
+        return ops.lloyd_assign_fused(points, centroids, lanes=lanes)
+
+    def sse(self, points, centroids, weights=None, lanes=None):
+        # step IS one pass here: its sse output is the cheapest scoring
+        return self.step(points, centroids, weights, lanes)[2]
+
+
+register(EagerEngine())
+register(FusedEngine())

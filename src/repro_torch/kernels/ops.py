@@ -1,0 +1,34 @@
+"""Public wrappers around the port's kernels, the counterpart of
+``repro.kernels.ops``.
+
+Both take one subset, ``(n,d)`` points with ``(k,d)`` centroids as in the
+reference, or a stack, ``(M,S,d)`` with ``(M,k,d)`` and optional ``lanes``.
+They run the CUDA kernel on CUDA tensors and its plain version on CPU
+tensors (``kernels/fused.py``).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import fused
+
+
+def lloyd_step_fused(points, centroids, weights=None, *, lanes=None):
+    """One fused Lloyd pass -> (sums (k,d), counts (k,), sse ()) for one
+    subset, or ``(L,k,d), (L,k), (L,)`` for a stack."""
+    if points.dim() == 2:
+        out = fused.fused_lloyd(
+            points.unsqueeze(0), centroids.unsqueeze(0),
+            None if weights is None else weights.unsqueeze(0))
+        return out.sums[0], out.counts[0], out.sse[0]
+    out = fused.fused_lloyd(points, centroids, weights, lanes)
+    return out.sums, out.counts, out.sse
+
+
+def lloyd_assign_fused(points, centroids, *, lanes=None):
+    """Labels + min squared distances from the fused pass's assign-only
+    mode -> (labels (n,) i32, mind (n,)) or ``(L,S)`` each for a stack."""
+    if points.dim() == 2:
+        out = fused.fused_lloyd(points.unsqueeze(0), centroids.unsqueeze(0),
+                                assign_only=True)
+        return out.labels[0], out.mind[0]
+    out = fused.fused_lloyd(points, centroids, lanes=lanes, assign_only=True)
+    return out.labels, out.mind
