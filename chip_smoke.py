@@ -3,21 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/``, holds
-each against its plain PyTorch version, drives the IPKMeans main path
-(kd-tree S1 -> fused-kernel S2 with empty-cluster reseeding -> min-ASSE S3)
-at full size through ``repro_torch.core.ipkmeans.ipkmeans``, and checks the
-result.  Phases:
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` (one
+``nvcc`` per source, all started together), holds each against its plain
+PyTorch version, drives the IPKMeans main path (kd-tree S1 -> S2 with
+empty-cluster reseeding -> min-ASSE S3) at full size through
+``repro_torch.core.ipkmeans.ipkmeans``, and checks the result.  Phases:
 
-  1. device and build: the card's name and power limit, the build time;
-  2. kernel against its plain version, both modes, at the main path's lane
-     shape and on a ragged case; determinism on a repeat launch; the
-     kernel's, the plain version's and one library yardstick's times;
-     these times are taken again over the whole stack after phase 4, and
-     those go into the report;
-  3. small-input agreement of the whole pipeline, card against CPU;
-  4. the main path at full size (n = 2**23, d = 64, K = 1024, M = 512);
-  5. a ``{"kernels": [...]}`` line, the card's line, and as the last line
+  1. device and build: the card's name and power limit, the build times;
+  2. [lane], [ragged]: the fused pass against its plain version, both
+     modes, at the main path's lane shape and on a ragged case; determinism
+     on a repeat launch; its times (taken again over the whole stack in
+     [stack], and those go into the report);
+  3. [solve]: the whole-solve kernel against its plain version on two
+     stacks, reseed on and off, prune "none" and "bounds"; bounds
+     bit-identical to exact, one batched launch bit-identical to one
+     resident launch per lane, a repeat launch bit-identical;
+  4. [small]: the whole pipeline on a small input, card against CPU;
+  5. [main]: the main path at full size (n = 2**23, d = 64, K = 1024,
+     M = 512), on ``backend="fused"`` (the first slice's path) and on
+     ``backend="batched"`` (the reference's main configuration) with
+     prune "none" and "bounds", each with the launch counts reset just
+     before and read just after; the whole-solve kernel's times at the
+     whole stack and on an 8-lane slice against its plain version;
+  6. [resident]: one full-width solve through ``kmeans(...,
+     backend="resident")``;
+  7. a ``{"kernels": [...]}`` line, the card's line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no last line.  Without a CUDA
@@ -30,11 +40,16 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SOURCE = "src/repro_torch/kernels/csrc/fused_lloyd.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCE = CSRC + "fused_lloyd.cu"
 REPLACES = "src/repro/kernels/fused.py:47"
+SOLVE_SOURCE = CSRC + "lloyd_solve.cu"
+REPLACES_BATCHED = "src/repro/kernels/batch_resident.py:109"
+REPLACES_RESIDENT = "src/repro/kernels/resident.py:151"
 
 # H100 SXM data sheet, at its 700 W limit: f32 without tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -58,6 +73,15 @@ MIND_REL = 1e-5
 # 16384 terms a lane): rtol 1e-4 against the plain version given the same
 # labels; counts are sums of 0/1 weights, exact in f32, and must be equal.
 SUM_RTOL = 1e-4
+# whole-solve kernel against its plain version ([solve], [main] slice,
+# [resident]): iterations, convergence and skip counters exact; centroids
+# rtol/atol 1e-4 and SSE rtol 1e-4 (f32 sums in another order).  Against the
+# fused engine's run of the main path: iterations exact, SSE rtol 1e-5 (the
+# same labels and sums; only the SSE tree's shape differs).
+SOLVE_RTOL = SOLVE_ATOL = 1e-4
+MAIN_SSE_RTOL = 1e-5
+# lanes of the main path's stack that the plain version is timed on
+PLAIN_LANES = 8
 
 
 def fail(msg: str) -> int:
@@ -283,38 +307,214 @@ def phase_kernel(torch, report: dict) -> bool:
     return True
 
 
+def solve_bound_ms(s: int, d: int, k: int, n_lanes: int, passes: int,
+                   skipped_rows: int, max_iters: int):
+    """Least time for a whole-solve launch: the larger of the f32 operations
+    of the score passes it actually ran (2*S*k*d for each lane's trips,
+    reseed passes and final pass, less the rows of skipped pruning blocks)
+    over the f32 peak, and the bytes (points, weights and seeds read once;
+    centroids, sse, iters, converged and the skip counters written once)
+    over the memory rate."""
+    flops = 2.0 * k * d * (s * passes - skipped_rows)
+    nbytes = 4.0 * (n_lanes * (s * d + s + k * d + 3) + k * d
+                    + 2 * max(max_iters, 1))
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def compare_solve(tag, got, want, torch) -> tuple[bool, float]:
+    """Kernel outputs against the plain version's (SolveOut tuples):
+    iterations, convergence, skip counters and score passes (which the
+    bounds count) exact, centroids and SSE within SOLVE_RTOL.  Returns (ok,
+    max |centroid error|)."""
+    same_it = torch.equal(got.iters, want.iters)
+    same_conv = torch.equal(got.converged, want.converged)
+    same_skips = torch.equal(got.skips, want.skips)
+    same_passes = torch.equal(got.passes, want.passes)
+    err = float(torch.max(torch.abs(got.centroids - want.centroids)))
+    c_ok = bool(torch.allclose(got.centroids, want.centroids,
+                               rtol=SOLVE_RTOL, atol=SOLVE_ATOL))
+    sse_ok = bool(torch.allclose(got.sse, want.sse, rtol=SOLVE_RTOL, atol=0))
+    sse_rel = float(torch.max(torch.abs(got.sse - want.sse)
+                              / torch.clamp(torch.abs(want.sse), min=1e-30)))
+    ok = (same_it and same_conv and same_skips and same_passes and c_ok
+          and sse_ok)
+    print(f"[{tag}] kernel vs plain: iters equal={same_it} "
+          f"({got.iters.tolist() if got.iters.numel() <= 8 else 'stack'}), "
+          f"converged equal={same_conv}, skips equal={same_skips}, "
+          f"passes equal={same_passes}, "
+          f"centroids max|err|={err:.3g} (rtol/atol {SOLVE_RTOL}), "
+          f"sse max rel={sse_rel:.3g}{'' if ok else '  FAIL'}", flush=True)
+    return ok, err
+
+
+def solve_batched(x, c, w, **kw):
+    """The batched launch with every output, score passes included."""
+    from repro_torch.kernels import batch_resident as br
+    return br.solve_stack(x, c, w, **kw)
+
+
+def resident_out(x, c, w, **kw):
+    """The resident launch (one lane, counted as the resident wrapper's)
+    with every output, as a one-lane SolveOut."""
+    from repro_torch.kernels import batch_resident as br
+    return br.solve_stack(x[None], c, w[None], count_as="resident", **kw)
+
+
+def identical(a, b) -> bool:
+    import torch
+    return all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def solve_stacks(torch, dev):
+    """The two stacks of [solve]: a mixture stack at the main path's d, and
+    a ragged one (S, d, k off every tile, ragged masks, one all-padding
+    lane, duplicated seeds so that reseed fires)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    m, s, d, k = 8, 4096, 64, 256
+    x = mixture(gen, m * s, d, k, dev).view(m, s, d).contiguous()
+    seeds = x.view(-1, d)[torch.randperm(m * s, generator=gen, device=dev)[:k]]
+    w = torch.ones((m, s), device=dev)
+    w[3, s - 1000:] = 0.0
+    mr, sr, dr, kr = 5, 1000, 17, 130
+    xr = mixture(gen, mr * sr, dr, kr, dev).view(mr, sr, dr).contiguous()
+    cr = xr[0, :kr].clone()
+    cr[7] = cr[3]                           # duplicates: 7 and 129 empty
+    cr[129] = cr[50]
+    wr = (torch.rand((mr, sr), generator=gen, device=dev) > 0.3).float()
+    wr[2] = 0.0                             # all padding
+    wr[4, 600:] = 0.0
+    return [("solve8", x, seeds.contiguous(), w),
+            ("ragged5", xr, cr.contiguous(), wr)]
+
+
+def phase_solve(torch, solve_report: dict) -> bool:
+    """The whole-solve kernel against its plain version, and its bitwise
+    contracts: bounds == exact, batched == resident per lane, repeat."""
+    from repro_torch.kernels import batch_resident as br
+    from repro_torch.kernels import resident
+    dev = torch.device("cuda")
+    worst = 0.0
+    for tag, x, c, w in solve_stacks(torch, dev):
+        for reseed in (False, True):
+            ref_out = None
+            for prune in ("none", "bounds"):
+                kw = dict(max_iters=MAX_ITERS, tol=TOL, reseed_empty=reseed,
+                          prune=prune)
+                name = f"{tag} reseed={reseed} prune={prune}"
+                got = solve_batched(x, c, w, **kw)
+                plain = br.lloyd_solve_plain(x, c, w, **kw)
+                torch.cuda.synchronize()
+                ok, err = compare_solve(name, got, plain, torch)
+                worst = max(worst, err)
+                again = solve_batched(x, c, w, **kw)
+                lanes = [resident.lloyd_solve_resident(
+                    x[i], c, w[i], **kw) for i in range(x.shape[0])]
+                torch.cuda.synchronize()
+                rep = identical(got, again)
+                per_lane = identical(
+                    got[:4], [torch.stack(p) for p in zip(*lanes)])
+                vs_exact = True
+                if ref_out is None:
+                    ref_out = got
+                else:
+                    vs_exact = identical(got[:4], ref_out[:4])
+                print(f"[solve] {name}: repeat bit-identical={rep}, batched "
+                      f"== resident per lane={per_lane}, bounds == exact="
+                      f"{vs_exact}, passes {got.passes.tolist()}, skipped "
+                      f"{int(got.skips[:, 0].sum())}/"
+                      f"{int(got.skips[:, 1].sum())} lane-blocks",
+                      flush=True)
+                if not (ok and rep and per_lane and vs_exact):
+                    return False
+    solve_report["max_abs_err"] = worst
+    return True
+
+
 def phase_small(torch) -> bool:
     """The whole pipeline on a small input, card against CPU (plain
-    version): subset ids and iterations exact, SSE within rtol 1e-4."""
+    versions): subset ids and iterations exact, SSE within rtol 1e-4, on
+    the fused and the batched engine."""
     import numpy as np
     from repro_torch.core import IPKMeansConfig, KMeansParams, ipkmeans
     from repro_torch.core.ipkmeans import _partition_and_pack
     rng = np.random.default_rng(SEED)
     x = (rng.normal(size=(2048, 8)) * 3.0).astype(np.float32)
     init = x[rng.choice(2048, 16, replace=False)]
-    cfg = IPKMeansConfig(num_clusters=16, num_subsets=8, kmeans=KMeansParams(
-        max_iters=50, tol=TOL, backend="fused", reseed_empty=True))
-    g = ipkmeans(x, init, cfg, device="cuda")
-    h = ipkmeans(x, init, cfg, device="cpu")
-    ids_g = _partition_and_pack(torch.as_tensor(x, device="cuda"), cfg)[0]
-    ids_h = _partition_and_pack(torch.as_tensor(x), cfg)[0]
-    same_ids = torch.equal(ids_g.subset_ids.cpu(), ids_h.subset_ids)
-    same_iters = torch.equal(g.subset_iters.cpu(), h.subset_iters)
-    rel = abs(float(g.sse) - float(h.sse)) / float(h.sse)
-    print(f"[small] n=2048 d=8 K=16 M=8: subset ids equal={same_ids}, "
-          f"iters equal={same_iters} ({h.subset_iters.tolist()}), sse card "
-          f"{float(g.sse):.6f} cpu {float(h.sse):.6f} rel {rel:.3g}",
-          flush=True)
-    return same_ids and same_iters and rel <= 1e-4 and bool(
-        torch.isfinite(g.centroids).all())
+    ok = True
+    for backend in ("fused", "batched"):
+        cfg = IPKMeansConfig(num_clusters=16, num_subsets=8,
+                             kmeans=KMeansParams(max_iters=50, tol=TOL,
+                                                 backend=backend,
+                                                 reseed_empty=True))
+        g = ipkmeans(x, init, cfg, device="cuda")
+        h = ipkmeans(x, init, cfg, device="cpu")
+        ids_g = _partition_and_pack(torch.as_tensor(x, device="cuda"),
+                                    cfg)[0]
+        ids_h = _partition_and_pack(torch.as_tensor(x), cfg)[0]
+        same_ids = torch.equal(ids_g.subset_ids.cpu(), ids_h.subset_ids)
+        same_iters = torch.equal(g.subset_iters.cpu(), h.subset_iters)
+        rel = abs(float(g.sse) - float(h.sse)) / float(h.sse)
+        print(f"[small] {backend}: n=2048 d=8 K=16 M=8: subset ids equal="
+              f"{same_ids}, iters equal={same_iters} "
+              f"({h.subset_iters.tolist()}), sse card {float(g.sse):.6f} cpu "
+              f"{float(h.sse):.6f} rel {rel:.3g}", flush=True)
+        ok = ok and same_ids and same_iters and rel <= 1e-4 and bool(
+            torch.isfinite(g.centroids).all())
+    return ok
 
 
-def phase_main(torch, report: dict) -> bool:
-    import numpy as np
-    from repro_torch.core import IPKMeansConfig, KMeansParams, ipkmeans
+def reset_counts():
+    from repro_torch.kernels import batch_resident, fused, resident
+    fused.launches = batch_resident.launches = resident.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import batch_resident, fused, resident
+    return {"fused_lloyd": fused.launches,
+            "lloyd_solve_batched": batch_resident.launches,
+            "lloyd_solve_resident": resident.launches}
+
+
+def run_path(torch, x, init, cfg, dev):
+    """One ipkmeans call through the entry point, the counts set to 0 just
+    before and read just after: (result, seconds, counts)."""
+    from repro_torch.core import ipkmeans
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ipkmeans(x, init, cfg, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return res, secs, read_counts()
+
+
+def stage_times(torch, x, init, cfg, dev):
+    """S1, S2, S3 run one at a time, each timed: (s1, s2, s3, stack, masks,
+    S2 result)."""
     from repro_torch.core.ipkmeans import _merge_stage, _partition_and_pack
     from repro_torch.core.kmeans import kmeans_batched
-    from repro_torch.kernels import fused
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, subsets, masks = _partition_and_pack(x, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stage = kmeans_batched(subsets, masks, init, cfg.kmeans, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _merge_stage(x, stage)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return t1 - t0, t2 - t1, t3 - t2, subsets, masks, stage
+
+
+def phase_main(torch, report: dict, solve_report: dict):
+    """The main path on both engines; returns the batched stack (subsets,
+    masks, seeds) for [resident], or None when a check failed."""
+    import numpy as np
+    from repro_torch.core import IPKMeansConfig, KMeansParams
+    from repro_torch.kernels import batch_resident as br
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -325,62 +525,211 @@ def phase_main(torch, report: dict) -> bool:
     print(f"[main] data: n={N} d={D} f32 ({x.numel() * 4 / 1e9:.2f} GB) "
           f"from a seeded mixture of {K} Gaussians, {K} seeds from the data,"
           f" in {time.perf_counter() - t0:.3f} s", flush=True)
-    cfg = IPKMeansConfig(num_clusters=K, num_subsets=M, kmeans=KMeansParams(
-        max_iters=MAX_ITERS, tol=TOL, backend="fused", reseed_empty=True))
-
-    # the entry point a user calls, with the launch count read around it
-    fused.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = ipkmeans(x, init, cfg, device=dev)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    launches = fused.launches
-    report["launches"] = launches
-
-    # the same stages once more, one at a time, for their wall times
-    t0 = time.perf_counter()
-    part, subsets, masks = _partition_and_pack(x, cfg)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    stage = kmeans_batched(subsets, masks, init, cfg.kmeans,
-                                      device=dev)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    final, sse = _merge_stage(x, stage)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-
-    it = res.subset_iters.float()
     one = 0.0
     mean = x.double().mean(0)
     for lo in range(0, N, 1 << 21):
         one += float(torch.sum((x[lo:lo + (1 << 21)].double() - mean) ** 2))
-    sse_f = float(res.sse)
-    print(f"[main] ipkmeans: K={K} M={M} depth={res.kd_depth} capacity="
-          f"{subsets.shape[1]} max_iters={MAX_ITERS} tol={TOL} reseed_empty="
-          f"True backend=fused: {total_s:.3f} s, fused launches {launches}",
-          flush=True)
-    print(f"[main] stages: S1 {t1 - t0:.3f} s, S2 {t2 - t1:.3f} s, S3 "
-          f"{t3 - t2:.3f} s", flush=True)
-    print(f"[main] subset_iters min/median/max "
-          f"{int(it.min())}/{float(it.median()):.0f}/{int(it.max())}, lanes "
-          f"at max_iters {int((res.subset_iters >= MAX_ITERS).sum())}, "
-          f"converged {int((res.subset_iters < MAX_ITERS).sum())}", flush=True)
-    print(f"[main] SSE {sse_f:.6e} (one-centroid SSE {one:.6e}, ratio "
-          f"{sse_f / one:.4f})", flush=True)
-    again = (torch.equal(stage.iters, res.subset_iters)
-             and torch.equal(final, res.centroids))
-    print(f"[main] stage-by-stage rerun identical to the entry point's run: "
-          f"{again}", flush=True)
 
-    # one step over the whole stack at its converged centroids: the shape
-    # the main path's first launches have, and the times the report carries
-    report.update(time_step("stack", subsets, res.intermediate.contiguous(),
-                            masks.float(), reps=3))
-    return (launches > 0 and np.isfinite(sse_f) and sse_f < one and again
-            and tuple(res.centroids.shape) == (K, D)
-            and bool(torch.isfinite(res.centroids).all()))
+    def config(backend, prune="none"):
+        return IPKMeansConfig(num_clusters=K, num_subsets=M,
+                              kmeans=KMeansParams(
+                                  max_iters=MAX_ITERS, tol=TOL,
+                                  backend=backend, reseed_empty=True,
+                                  prune=prune))
+
+    def sane(res):
+        sse_f = float(res.sse)
+        return (np.isfinite(sse_f) and sse_f < one
+                and tuple(res.centroids.shape) == (K, D)
+                and bool(torch.isfinite(res.centroids).all()))
+
+    def describe(tag, res, secs, counts, stages):
+        it = res.subset_iters.float()
+        print(f"[main] {tag}: K={K} M={M} depth={res.kd_depth} max_iters="
+              f"{MAX_ITERS} tol={TOL} reseed_empty=True: {secs:.3f} s, "
+              f"launches {counts}", flush=True)
+        print(f"[main] {tag} stages: S1 {stages[0]:.3f} s, S2 "
+              f"{stages[1]:.3f} s, S3 {stages[2]:.3f} s", flush=True)
+        print(f"[main] {tag} subset_iters min/median/max "
+              f"{int(it.min())}/{float(it.median()):.0f}/{int(it.max())}, "
+              f"lanes at max_iters "
+              f"{int((res.subset_iters >= MAX_ITERS).sum())}; SSE "
+              f"{float(res.sse):.6e} (one-centroid SSE {one:.6e}, ratio "
+              f"{float(res.sse) / one:.4f})", flush=True)
+
+    # the first slice's path: fused engine, one launch per Lloyd trip
+    cfg_f = config("fused")
+    res_f, secs_f, counts_f = run_path(torch, x, init, cfg_f, dev)
+    st_f = stage_times(torch, x, init, cfg_f, dev)
+    describe("fused", res_f, secs_f, counts_f, st_f)
+    report["launches"] = counts_f["fused_lloyd"]
+    again = torch.equal(st_f[5].iters, res_f.subset_iters)
+
+    # this slice's path: the whole stack in one whole-solve launch
+    cfg_b = config("batched")
+    res_b, secs_b, counts_b = run_path(torch, x, init, cfg_b, dev)
+    st_b = stage_times(torch, x, init, cfg_b, dev)
+    describe("batched", res_b, secs_b, counts_b, st_b)
+    solve_report["launches"] = counts_b["lloyd_solve_batched"]
+    res_p, secs_p, counts_p = run_path(torch, x, init,
+                                       config("batched", "bounds"), dev)
+    it_p = res_p.subset_iters.float()
+    print(f"[main] batched prune=bounds: {secs_p:.3f} s, launches "
+          f"{counts_p}, subset_iters min/median/max {int(it_p.min())}/"
+          f"{float(it_p.median()):.0f}/{int(it_p.max())}", flush=True)
+
+    n_diff = int((res_b.subset_iters != res_f.subset_iters).sum())
+    c_rel = float(torch.max(torch.abs(res_b.intermediate - res_f.intermediate)
+                            / torch.clamp(torch.abs(res_f.intermediate),
+                                          min=1e-6)))
+    sse_rel = abs(float(res_b.sse) - float(res_f.sse)) / float(res_f.sse)
+    bounds_same = (torch.equal(res_p.intermediate, res_b.intermediate)
+                   and torch.equal(res_p.subset_iters, res_b.subset_iters)
+                   and torch.equal(res_p.sse, res_b.sse)
+                   and torch.equal(res_p.centroids, res_b.centroids))
+    print(f"[main] batched against fused: lanes whose iters differ {n_diff},"
+          f" max relative centroid difference {c_rel:.3g}, SSE "
+          f"{float(res_b.sse):.6e} vs {float(res_f.sse):.6e} (rel "
+          f"{sse_rel:.3g}, rtol {MAIN_SSE_RTOL}); bounds bit-identical to "
+          f"exact: {bounds_same}", flush=True)
+    ok = (again and sane(res_f) and sane(res_b)
+          and counts_f["fused_lloyd"] > 0
+          and counts_b == {"fused_lloyd": 0, "lloyd_solve_batched": 1,
+                           "lloyd_solve_resident": 0}
+          and counts_p["lloyd_solve_batched"] == 1
+          and n_diff == 0 and sse_rel <= MAIN_SSE_RTOL and bounds_same)
+    if not ok:
+        print("[main] FAIL", flush=True)
+        return None
+
+    # the whole-solve kernel at the whole stack: times, work, bound
+    subsets, masks = st_b[3], st_b[4].float()
+    kw = dict(max_iters=MAX_ITERS, tol=TOL, reseed_empty=True)
+    ms = cuda_time_ms(lambda: solve_batched(subsets, init, masks, **kw),
+                      reps=2, warmup=1)
+    out = solve_batched(subsets, init, masks, **kw)
+    ms_b = cuda_time_ms(lambda: solve_batched(subsets, init, masks,
+                                               prune="bounds", **kw),
+                        reps=2, warmup=1)
+    out_b = solve_batched(subsets, init, masks, prune="bounds", **kw)
+    m_, s_, d_ = subsets.shape
+    passes = int(out.passes.sum())
+    bound, by = solve_bound_ms(s_, d_, K, m_, passes, 0, MAX_ITERS)
+    bb = br._bound_blocks(s_, "bounds", None)[0]
+    skipped = int(out_b.skips[:, 0].sum())
+    live = int(out_b.skips[:, 1].sum())
+    bound_b, _ = solve_bound_ms(s_, d_, K, m_, int(out_b.passes.sum()),
+                                skipped * bb, MAX_ITERS)
+    fused_s2_ms = st_f[1] * 1e3
+    tflops = 2.0 * K * d_ * s_ * passes / (ms * 1e-3) / 1e12
+    print(f"[main] whole-solve kernel, {m_}x{s_}x{d_}, k={K}: {ms:.4f} ms "
+          f"({passes} score passes, {tflops:.2f} TFLOP/s), bound "
+          f"{bound:.4f} ms ({by}); "
+          f"prune=bounds {ms_b:.4f} ms, skipped {skipped}/{live} lane-blocks "
+          f"({skipped / max(live, 1):.4f}), bound {bound_b:.4f} ms; the fused"
+          f" engine's S2 on the same stack {fused_s2_ms:.4f} ms", flush=True)
+
+    # one score pass per lane and nothing else (max_iters=0): the per-pass
+    # rate with every lane resident on the card, and with one lane on one SM
+    one_pass = cuda_time_ms(lambda: solve_batched(subsets, init, masks,
+                                                  max_iters=0), reps=3,
+                            warmup=1)
+    lane_pass = cuda_time_ms(lambda: solve_batched(
+        subsets[:1].contiguous(), init, masks[:1].contiguous(),
+        max_iters=0), reps=3, warmup=1)
+    print(f"[main] one score pass (max_iters=0): whole stack {one_pass:.4f} "
+          f"ms, one lane alone {lane_pass:.4f} ms", flush=True)
+
+    # an 8-lane slice: kernel against its plain version, and their times
+    xs, ws = subsets[:PLAIN_LANES].contiguous(), masks[:PLAIN_LANES]
+    got = solve_batched(xs, init, ws, **kw)
+    plain = br.lloyd_solve_plain(xs, init, ws, **kw)
+    torch.cuda.synchronize()
+    ok, err = compare_solve(f"main {PLAIN_LANES}-lane slice", got, plain,
+                            torch)
+    ms8 = cuda_time_ms(lambda: solve_batched(xs, init, ws, **kw), reps=2,
+                       warmup=1)
+    plain_ms = cuda_time_ms(lambda: br.lloyd_solve_plain(xs, init, ws, **kw),
+                            reps=2, warmup=1)
+    bound8, _ = solve_bound_ms(s_, d_, K, PLAIN_LANES, int(got.passes.sum()),
+                               0, MAX_ITERS)
+    print(f"[main] {PLAIN_LANES}-lane slice: kernel {ms8:.4f} ms, plain "
+          f"version {plain_ms:.4f} ms, bound {bound8:.4f} ms", flush=True)
+    solve_report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, library_ms=None,
+                        max_abs_err=max(err, solve_report["max_abs_err"]),
+                        ms_bounds=ms_b, bound_ms_bounds=bound_b,
+                        skip_fraction=skipped / max(live, 1),
+                        plain_lanes=PLAIN_LANES, ms_plain_lanes=ms8,
+                        bound_ms_plain_lanes=bound8,
+                        fused_s2_ms=fused_s2_ms, one_pass_ms=one_pass,
+                        one_lane_pass_ms=lane_pass)
+    if not ok:
+        return None
+
+    # one step of the fused pass over the whole stack at its converged
+    # centroids: the shape of the first slice's launches
+    report.update(time_step("stack", subsets, res_f.intermediate.contiguous(),
+                            masks, reps=3))
+    return subsets, masks, init
+
+
+def phase_resident(torch, report: dict, stack) -> bool:
+    """One full-width solve (lane 0 of the main path's stack) through
+    ``kmeans(..., backend="resident")``, then the wrapper's times."""
+    from repro_torch.core import KMeansParams
+    from repro_torch.core.kmeans import kmeans
+    from repro_torch.kernels import batch_resident as br
+    from repro_torch.kernels import resident
+    subsets, masks, init = stack
+    x0, w0 = subsets[0], masks[0]
+    params = KMeansParams(max_iters=MAX_ITERS, tol=TOL, backend="resident",
+                          reseed_empty=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = kmeans(x0, init, w0.bool(), params, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    report["launches"] = counts["lloyd_solve_resident"]
+    kw = dict(max_iters=MAX_ITERS, tol=TOL, reseed_empty=True)
+    ms = cuda_time_ms(lambda: resident.lloyd_solve_resident(x0, init, w0,
+                                                            **kw),
+                      reps=3, warmup=1)
+    plain_ms = cuda_time_ms(lambda: br.lloyd_solve_plain(
+        x0[None], init, w0[None], **kw), reps=3, warmup=1)
+    got = resident_out(x0, init, w0, **kw)
+    plain = br.lloyd_solve_plain(x0[None], init, w0[None], **kw)
+    torch.cuda.synchronize()
+    ok, err = compare_solve("resident", got, plain, torch)
+    s_, d_ = x0.shape
+    bound, by = solve_bound_ms(s_, d_, K, 1, int(got.passes.sum()), 0,
+                               MAX_ITERS)
+    # the same solve on the fused engine (one launch per trip), beside it
+    fused_params = params._replace(backend="fused")
+    kmeans(x0, init, w0.bool(), fused_params, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_f = kmeans(x0, init, w0.bool(), fused_params, device="cuda")
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[resident] kmeans(backend='resident') on lane 0 "
+          f"({s_}x{d_}, k={K}): {secs:.3f} s, iters {int(res.iters)} "
+          f"({int(got.passes[0])} score passes), launches {counts}; kernel "
+          f"{ms:.4f} ms, plain version {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}); the fused engine's solve {fused_ms:.4f} "
+          f"ms, iters {int(res_f.iters)}", flush=True)
+    report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                  library_ms=None, max_abs_err=err)
+    return ok and counts == {"fused_lloyd": 0, "lloyd_solve_batched": 0,
+                             "lloyd_solve_resident": 1} and bool(
+        torch.equal(res.iters.reshape(1), got.iters)) and int(
+        res_f.iters) == int(res.iters)
+
+
+KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def main() -> int:
@@ -398,25 +747,40 @@ def main() -> int:
     smi = nvidia_smi_line()
     print(smi, flush=True)
 
-    from repro_torch.kernels import _build, fused
+    from repro_torch.kernels import _build, batch_resident, fused
+    sources = [fused.SOURCE, batch_resident.SOURCE]
     t0 = time.perf_counter()
-    _build.load(fused.SOURCE)
-    print(f"build: {fused.SOURCE} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds.get(fused.SOURCE, 0.0):.2f} s)",
-          flush=True)
+    # one nvcc for each source, all started together
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    for src in sources:
+        _build.load(src)
+    print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc " + ", ".join(f"{_build.build_seconds.get(src, 0.0):.2f} s"
+                                for src in sources) + ")", flush=True)
 
     report = {"name": "fused_lloyd", "route": "cuda", "source": SOURCE,
               "replaces": REPLACES}
+    batched = {"name": "lloyd_solve_batched", "route": "cuda",
+               "source": SOLVE_SOURCE, "replaces": REPLACES_BATCHED}
+    res_rep = {"name": "lloyd_solve_resident", "route": "cuda",
+               "source": SOLVE_SOURCE, "replaces": REPLACES_RESIDENT}
     if not phase_kernel(torch, report):
-        return fail("kernel against its plain version")
+        return fail("fused kernel against its plain version")
+    if not phase_solve(torch, batched):
+        return fail("whole-solve kernel against its plain version")
     if not phase_small(torch):
         return fail("small-input agreement, card against CPU")
-    if not phase_main(torch, report):
+    stack = phase_main(torch, report, batched)
+    if stack is None:
         return fail("main path")
-    kernel = {key: report[key] for key in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    if not phase_resident(torch, res_rep, stack):
+        return fail("resident solve")
+    kernels = [{key: rep[key] for key in KEYS} for rep in (report, batched,
+                                                           res_rep)]
+    extra = {key: batched[key] for key in batched if key not in KEYS}
+    print(json.dumps({"whole_solve_stack": extra}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ single-process ``repro.core.ipkmeans.ipkmeans``.
 Three stages (Section 2):
   S1  partition_dataset : k-d tree median splits + labeling, then a scatter
       pack into an (M, S, d) stack plus mask
-  S2  per-subset k-means: M independent Lloyd solves to convergence, one
-      launch per iteration for the whole stack (``backend="fused"``)
+  S2  per-subset k-means: M independent Lloyd solves to convergence, the
+      whole stack in one launch of the whole-solve kernel
+      (``backend="batched"``, the reference's main configuration), or one
+      launch per Lloyd trip (``backend="fused"``)
   S3  merge             : min-ASSE selection, then the SSE over the dataset
 
 This slice covers ``partition="kd_axis"``, ``s1`` ``"auto"``/``"sort"``,
@@ -55,7 +57,8 @@ class IPKMeansConfig:
                              f"(expected one of {S1_MODES})")
 
     def with_backend(self, backend: str) -> "IPKMeansConfig":
-        """Same config, different Lloyd engine ('eager' | 'fused')."""
+        """Same config, different Lloyd engine ('eager' | 'fused' |
+        'resident' | 'batched')."""
         return dataclasses.replace(
             self, kmeans=self.kmeans._replace(backend=backend))
 

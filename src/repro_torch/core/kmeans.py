@@ -3,8 +3,10 @@
 
 The solve is delegated whole to a :class:`repro_torch.kernels.engine
 .LloydEngine` looked up from ``params.backend``: ``eager`` (plain PyTorch
-oracles, the reference's ``jnp`` role) or ``fused`` (the hand-written fused
-kernel).  Seeding other than ``init="given"`` comes in a later slice.
+oracles, the reference's ``jnp`` role), ``fused`` (the hand-written fused
+kernel, one launch per Lloyd trip), ``resident`` (the whole-solve kernel,
+one launch per subset) or ``batched`` (the whole-solve kernel, one launch
+per stack).  Seeding other than ``init="given"`` comes in a later slice.
 """
 from __future__ import annotations
 
@@ -20,10 +22,12 @@ from repro_torch.kernels import engine as engines
 class KMeansParams(NamedTuple):
     max_iters: int = 300
     tol: float = 1e-6             # paper: "until centroids stop moving"
-    backend: str = "eager"        # 'eager' | 'fused' (later: 'twopass',
-                                  # 'resident', 'batched', 'tuned')
+    backend: str = "eager"        # 'eager' | 'fused' | 'resident' |
+                                  # 'batched' (later: 'twopass', 'tuned')
     reseed_empty: bool = False    # re-seed empty clusters at farthest points
-    prune: str = "none"           # 'none' (later: 'bounds')
+    prune: str = "none"           # 'none' | 'bounds' (bound-gated block
+                                  # skipping in the whole-solve kernels; the
+                                  # same result on every engine)
     init: str = "given"           # 'given' (later: 'sample' | 'kmeans++' |
                                   # 'kmeans||')
 

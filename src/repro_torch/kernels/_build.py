@@ -2,10 +2,11 @@
 
 Each ``csrc/*.cu`` file is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, under ``build/repro_torch/``
-at the root of the checkout (a git-ignored directory).  The library name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  A failed build raises; nothing here
-runs when a module is imported.
+at the root of the checkout (a git-ignored directory); the ``csrc/*.cuh``
+headers hold device code that several sources share.  The library name
+carries a hash of the source, the headers and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.  A
+failed build raises; nothing here runs when a module is imported.
 """
 from __future__ import annotations
 
@@ -45,9 +46,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{tag}.so"
+    """Where the build of ``csrc/<source>`` goes: the name carries a hash of
+    the source, of every shared header in ``csrc/`` and of the flags."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> Path:

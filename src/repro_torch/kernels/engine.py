@@ -17,23 +17,26 @@ written out, so every engine method takes a stack, ``points (M,S,d)``,
   * ``solve(points, init, weights, ...)`` — one subset, a stack of one.
 
 Engines registered: ``eager`` (the reference's ``jnp`` role: plain PyTorch
-oracles) and ``fused`` (the hand-written fused kernel).  The reference's
+oracles), ``fused`` (the hand-written fused kernel, one launch per Lloyd
+trip), ``resident`` (the whole-solve kernel, one launch per subset) and
+``batched`` (the whole-solve kernel, one launch per stack).  The reference's
 other engines raise ``NotImplementedError`` naming the slice that ports them.
+``prune="bounds"`` is accepted everywhere: the whole-solve kernels skip
+score passes with it, and the per-step engines run their exact loop, which
+gives the same result.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.resident import check_prune
 
 _REGISTRY: dict[str, "LloydEngine"] = {}
 
 # engines of the reference that later slices of the port bring, by the
 # port's name (``jnp``/``pallas`` roles become ``eager``/``twopass``)
 LATER = {
-    "batched": "the next slice (the batched megakernel)",
-    "resident": "the next slice (resident, the M=1 lane of the batched "
-                "megakernel)",
     "tuned": "a later slice (kernel tuning)",
     "twopass": "a later slice (the assign and centroid-update kernels)",
     "pallas": "a later slice (the assign and centroid-update kernels, as "
@@ -58,16 +61,6 @@ def get_engine(name: str) -> "LloydEngine":
 
 def available() -> tuple[str, ...]:
     return tuple(_REGISTRY)
-
-
-def check_prune(prune: str) -> None:
-    if prune == "bounds":
-        raise NotImplementedError(
-            "prune='bounds' comes with the whole-solve kernels in the next "
-            "slice")
-    if prune != "none":
-        raise ValueError(f"unknown prune: {prune!r} "
-                         f"(expected 'none' | 'bounds')")
 
 
 def _all_lanes(points, lanes):
@@ -156,7 +149,9 @@ class LloydEngine:
         cluster, and the per-lane ``centroid_shift``; frozen lanes are not
         touched again, so they keep their centroids and ``iters`` exactly.
         One host sync per trip (the active-lane list).  After the loop one
-        more pass per lane gives the SSE.
+        more pass per lane gives the SSE.  ``prune`` is validated only: a
+        host loop has no block state to skip, and the exact loop IS the
+        pruned result.
         """
         from repro_torch.core.metrics import centroid_shift
         check_prune(prune)
@@ -221,5 +216,53 @@ class FusedEngine(LloydEngine):
         return self.step(points, centroids, weights, lanes)[2]
 
 
+class ResidentEngine(FusedEngine):
+    """The whole-solve kernel, one launch per subset: the convergence loop,
+    the reseed of empty clusters and the final scoring pass run on the card
+    with no host between trips.  ``step``/``assign``/``sse`` are the fused
+    engine's.  A stack is one launch per lane (the reference's vmap of the
+    resident solve).  A ``k`` beyond one block's shared memory raises
+    ``ValueError``: the fused kernel has the same limit, so there is no
+    engine to fall back to."""
+
+    name = "resident"
+
+    def solve(self, points, init_centroids, weights=None, *,
+              max_iters: int, tol: float, reseed_empty: bool = False,
+              prune: str = "none"):
+        from repro_torch.kernels import ops
+        return ops.lloyd_solve_resident(
+            points, init_centroids, weights, max_iters=max_iters, tol=tol,
+            reseed_empty=reseed_empty, prune=prune)
+
+    def solve_batched(self, subsets, init_centroids, weights=None, *,
+                      max_iters: int, tol: float, reseed_empty: bool = False,
+                      prune: str = "none"):
+        outs = [self.solve(subsets[i], init_centroids,
+                           None if weights is None else weights[i],
+                           max_iters=max_iters, tol=tol,
+                           reseed_empty=reseed_empty, prune=prune)
+                for i in range(subsets.shape[0])]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+class BatchedEngine(ResidentEngine):
+    """The whole-solve kernel over a whole S2 stack in ONE launch, one
+    thread block per lane; each lane is bit-for-bit the ``resident`` solve.
+    Single solves (``solve``) are the resident engine's."""
+
+    name = "batched"
+
+    def solve_batched(self, subsets, init_centroids, weights=None, *,
+                      max_iters: int, tol: float, reseed_empty: bool = False,
+                      prune: str = "none"):
+        from repro_torch.kernels import ops
+        return ops.lloyd_solve_batched(
+            subsets, init_centroids, weights, max_iters=max_iters, tol=tol,
+            reseed_empty=reseed_empty, prune=prune)
+
+
 register(EagerEngine())
 register(FusedEngine())
+register(ResidentEngine())
+register(BatchedEngine())

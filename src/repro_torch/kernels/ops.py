@@ -1,14 +1,23 @@
 """Public wrappers around the port's kernels, the counterpart of
 ``repro.kernels.ops``.
 
-Both take one subset, ``(n,d)`` points with ``(k,d)`` centroids as in the
-reference, or a stack, ``(M,S,d)`` with ``(M,k,d)`` and optional ``lanes``.
-They run the CUDA kernel on CUDA tensors and its plain version on CPU
-tensors (``kernels/fused.py``).
+The fused-pass wrappers take one subset, ``(n,d)`` points with ``(k,d)``
+centroids as in the reference, or a stack, ``(M,S,d)`` with ``(M,k,d)`` and
+optional ``lanes`` (``kernels/fused.py``).  The whole-solve wrappers take
+one subset (``lloyd_solve_resident``, ``kernels/resident.py``) or a stack
+with shared ``(k,d)`` seeds (``lloyd_solve_batched``,
+``kernels/batch_resident.py``).  All run the CUDA kernel on CUDA tensors
+and its plain version on CPU tensors.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import fused
+from repro_torch.kernels import fused, ref
+from repro_torch.kernels.batch_resident import lloyd_solve_batched
+from repro_torch.kernels.resident import lloyd_solve_resident
+
+__all__ = ["lloyd_step_fused", "lloyd_assign_fused", "lloyd_solve_resident",
+           "lloyd_solve_batched", "assign_ref", "centroid_update_ref",
+           "lloyd_step_ref", "lloyd_solve_ref", "lloyd_solve_bounds_ref"]
 
 
 def lloyd_step_fused(points, centroids, weights=None, *, lanes=None):
@@ -32,3 +41,11 @@ def lloyd_assign_fused(points, centroids, *, lanes=None):
         return out.labels[0], out.mind[0]
     out = fused.fused_lloyd(points, centroids, lanes=lanes, assign_only=True)
     return out.labels, out.mind
+
+
+# the oracles, so callers can switch implementations uniformly
+assign_ref = ref.assign_ref
+centroid_update_ref = ref.centroid_update_ref
+lloyd_step_ref = ref.lloyd_step_ref
+lloyd_solve_ref = ref.lloyd_solve_ref
+lloyd_solve_bounds_ref = ref.lloyd_solve_bounds_ref

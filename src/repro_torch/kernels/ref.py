@@ -92,3 +92,138 @@ def lloyd_step_ref(points: torch.Tensor, centroids: torch.Tensor,
     labels, mind = assign_ref(points, centroids)
     sums, counts = centroid_update_ref(points, labels, w, k)
     return sums, counts, torch.sum(w * mind, dim=-1)
+
+
+# ---- bound-gated block skipping (prune="bounds") ----
+# Hamerly-style: a block of points whose stored reassignment margin (the
+# worst d2 - d1 over the block, in distance units) exceeds twice the
+# centroid drift accumulated since the block was last scored keeps every
+# assignment, so its score pass can be skipped.  The whole-solve kernel and
+# its plain version share these three definitions.
+
+
+def bound_second_best(scores: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+    """Min score over the non-assigned centroids: (..., k), (...) -> (...).
+    +inf when k == 1: a single centroid can never steal an assignment."""
+    col = torch.arange(scores.shape[-1], device=scores.device)
+    masked = torch.where(col == labels.unsqueeze(-1).long(), torch.inf,
+                         scores)
+    return torch.amin(masked, dim=-1)
+
+
+def bound_gap(best_sq: torch.Tensor, second_sq: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """Per-point reassignment margin d2 - d1 from the squared best and
+    second-best distances; +inf for invalid (padding) rows, so they never
+    constrain a block's margin."""
+    gap = (torch.sqrt(torch.clamp(second_sq, min=0.0))
+           - torch.sqrt(torch.clamp(best_sq, min=0.0)))
+    return torch.where(valid, gap, torch.inf)
+
+
+def bounds_may_skip(margin: torch.Tensor, drift: torch.Tensor) -> torch.Tensor:
+    """The triangle-inequality skip test, strict: every best distance grew
+    by at most ``drift`` and every second-best shrank by at most ``drift``,
+    so ``margin > 2 * drift`` keeps the block's assignments.  A fresh block
+    carries a ``-inf`` margin and is always scored."""
+    return margin > 2.0 * drift
+
+
+def _solve_init(points, centroids, weights):
+    x = points.float()
+    lead = x.shape[:-2]
+    c = centroids.float().expand(*lead, *centroids.shape[-2:]).clone()
+    w = _as_weights(x, weights)
+    it = torch.zeros(lead, dtype=torch.int32, device=x.device)
+    shift = torch.full(lead, torch.inf, dtype=torch.float32, device=x.device)
+    return x, c, w, it, shift
+
+
+def lloyd_solve_ref(points: torch.Tensor, centroids: torch.Tensor,
+                    weights: torch.Tensor | None = None, *,
+                    max_iters: int = 300, tol: float = 1e-6):
+    """A whole Lloyd solve -> (centroids (..., k, d) f32, sse (...) f32,
+    iters (...) i32, converged (...) bool).
+
+    Iterate while ``iters < max_iters and shift > tol`` with keep-old
+    handling of empty clusters, then score the final centroids once more.
+    ``points (..., n, d)`` with lanes as leading dimensions; ``centroids``
+    ``(k, d)`` shared by every lane or one ``(..., k, d)`` per lane.  A lane
+    that stops keeps its state while the others go on.
+    """
+    from repro_torch.core.metrics import centroid_shift
+    x, c, w, it, shift = _solve_init(points, centroids, weights)
+    while True:
+        active = (it < max_iters) & (shift > tol)
+        if not bool(torch.any(active)):
+            break
+        sums, counts, _ = lloyd_step_ref(x, c, w)
+        new_c = divide_or_keep(sums, counts, c)
+        new_shift = centroid_shift(new_c, c)
+        c = torch.where(active[..., None, None], new_c, c)
+        shift = torch.where(active, new_shift, shift)
+        it = it + active.to(torch.int32)
+    _, mind = assign_ref(x, c)
+    return c, torch.sum(w * mind, dim=-1), it, shift <= tol
+
+
+def lloyd_solve_bounds_ref(points: torch.Tensor, centroids: torch.Tensor,
+                           weights: torch.Tensor | None = None, *,
+                           max_iters: int = 300, tol: float = 1e-6,
+                           block_rows: int = 64):
+    """:func:`lloyd_solve_ref` with the block-skip logic of the pruned
+    kernel -> (centroids, sse, iters, converged, skips (..., max_iters, 2)
+    i32: [blocks skipped, blocks total] per iteration and lane).
+
+    It computes the full score matrix every iteration but SELECTS the cached
+    assignment for the blocks the bound declares skippable, so an unsound
+    bound diverges from :func:`lloyd_solve_ref`.  Blocks are ``block_rows``
+    rows, the last one padded with rows that never constrain a margin.
+    """
+    from repro_torch.core.metrics import centroid_shift
+    x, c, w, it, shift = _solve_init(points, centroids, weights)
+    lead, n, k = x.shape[:-2], x.shape[-2], c.shape[-2]
+    bb = max(1, min(int(block_rows), n))
+    nb = -(-n // bb)
+    pad = nb * bb - n
+    idx = torch.zeros((*lead, n), dtype=torch.int64, device=x.device)
+    margin = torch.full((*lead, nb), -torch.inf, device=x.device)
+    dacc = torch.zeros((*lead, nb), device=x.device)
+    skips = torch.zeros((*lead, max(int(max_iters), 1), 2), dtype=torch.int32,
+                        device=x.device)
+    trip = 0
+    while True:
+        active = (it < max_iters) & (shift > tol)
+        if not bool(torch.any(active)):
+            break
+        skip_b = bounds_may_skip(margin, dacc)                   # (..., nb)
+        x2 = torch.sum(x * x, dim=-1, keepdim=True)
+        c2 = torch.sum(c * c, dim=-1).unsqueeze(-2)
+        d2 = torch.clamp(x2 - 2.0 * (x @ c.transpose(-1, -2)) + c2, min=0.0)
+        labels = torch.argmin(d2, dim=-1)
+        mind = torch.gather(d2, -1, labels.unsqueeze(-1)).squeeze(-1)
+        gap = bound_gap(mind, bound_second_best(d2, labels), w > 0.0)
+        gap = torch.nn.functional.pad(gap, (0, pad), value=torch.inf)
+        new_margin = torch.amin(gap.view(*lead, nb, bb), dim=-1)
+        skip_rows = skip_b.repeat_interleave(bb, dim=-1)[..., :n]
+        new_idx = torch.where(skip_rows, idx, labels)
+        new_margin = torch.where(skip_b, margin, new_margin)
+        sums, counts = centroid_update_ref(x, new_idx, w, k)
+        new_c = divide_or_keep(sums, counts, c)
+        new_shift = centroid_shift(new_c, c)
+        new_dacc = torch.where(skip_b, dacc + new_shift.unsqueeze(-1),
+                               new_shift.unsqueeze(-1))
+        a = active.unsqueeze(-1)
+        idx = torch.where(a, new_idx, idx)
+        margin = torch.where(a, new_margin, margin)
+        dacc = torch.where(a, new_dacc, dacc)
+        skips[..., trip, 0] = torch.where(
+            active, torch.sum(skip_b, dim=-1).to(torch.int32), 0)
+        skips[..., trip, 1] = torch.where(active, nb, 0)
+        c = torch.where(active[..., None, None], new_c, c)
+        shift = torch.where(active, new_shift, shift)
+        it = it + active.to(torch.int32)
+        trip += 1
+    _, mind = assign_ref(x, c)
+    return c, torch.sum(w * mind, dim=-1), it, shift <= tol, skips

@@ -1,5 +1,7 @@
-"""The port's CUDA kernel on the card: against its plain version, and
-bit-for-bit on a repeat launch.  Marked ``cuda``; skips without a card.
+"""The port's CUDA kernels on the card: the fused pass and the whole-solve
+kernel against their plain versions, and the whole-solve kernel's bitwise
+contracts (bounds == exact, one batched launch == one resident launch per
+lane).  Marked ``cuda``; skips without a card.
 Run on a machine with one (no JAX needed, so without the JAX conftest):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -10,7 +12,7 @@ import torch
 
 from repro_torch.core.ipkmeans import IPKMeansConfig, ipkmeans
 from repro_torch.core.kmeans import KMeansParams
-from repro_torch.kernels import fused
+from repro_torch.kernels import batch_resident, fused, resident
 
 pytestmark = pytest.mark.cuda
 
@@ -18,7 +20,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the fused kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -69,3 +71,91 @@ def test_pipeline_on_card_matches_cpu(card):
     want = ipkmeans(x, init, cfg, device="cpu")
     assert torch.equal(got.subset_iters.cpu(), want.subset_iters)
     np.testing.assert_allclose(float(got.sse), float(want.sse), rtol=1e-4)
+
+
+def _solve_stack(dev):
+    """A ragged stack: ragged masks, one all-padding lane, duplicated seeds
+    so that reseed fires; mixture data, so that no score is a near-tie."""
+    rng = np.random.default_rng(3)
+    m, s, d, k = 5, 1000, 17, 130
+    centers = rng.uniform(-6, 6, size=(k, d))
+    x = (centers[rng.integers(0, k, (m, s))]
+         + rng.normal(size=(m, s, d))).astype(np.float32)
+    c = x[0, :k].copy()
+    c[7] = c[3]
+    c[129] = c[50]
+    w = (rng.random((m, s)) > 0.3).astype(np.float32)
+    w[2] = 0.0
+    return (torch.from_numpy(a).to(dev) for a in (x, c, w))
+
+
+KW = dict(max_iters=50, tol=1e-6, reseed_empty=True)
+
+
+def test_solve_kernel_matches_plain_version(card):
+    x, c, w = _solve_stack(card)
+    before = batch_resident.launches
+    got = batch_resident.lloyd_solve_batched(x, c, w, return_skips=True,
+                                             **KW)
+    assert batch_resident.launches == before + 1
+    want = batch_resident.lloyd_solve_plain(x, c, w, **KW)
+    # iterations exact; centroids and sse are f32 sums in another order
+    assert torch.equal(got[2], want.iters)
+    assert torch.equal(got[3], want.converged)
+    torch.testing.assert_close(got[0], want.centroids, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[1], want.sse, rtol=1e-4, atol=0.0)
+    assert int(got[2][2]) == 1 and float(got[1][2]) == 0.0   # all padding
+
+
+def test_solve_bounds_is_exact_bit_for_bit(card):
+    x, c, w = _solve_stack(card)
+    exact = batch_resident.lloyd_solve_batched(x, c, w, **KW)
+    pruned = batch_resident.lloyd_solve_batched(x, c, w, prune="bounds",
+                                                bound_block=16, **KW)
+    assert all(torch.equal(a, b) for a, b in zip(exact, pruned))
+
+
+def test_batched_lane_is_resident_solve_bit_for_bit(card):
+    x, c, w = _solve_stack(card)
+    stack = batch_resident.lloyd_solve_batched(x, c, w, **KW)
+    for i in range(x.shape[0]):
+        one = resident.lloyd_solve_resident(x[i], c, w[i], **KW)
+        assert all(torch.equal(a[i], b) for a, b in zip(stack, one))
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((3, 40, 5, 4), dict(prune="bounds", bound_block=16)),
+    ((4, 64, 8, 6), dict(prune="bounds", bound_block=16, max_iters=2)),
+    ((3, 64, 8, 1), dict(prune="bounds")),
+    ((3, 64, 8, 6), dict(max_iters=0)),
+])
+def test_solve_kernel_edge_shapes_match_plain_version(card, shape, kw):
+    m, s, d, k = shape
+    rng = np.random.default_rng(sum(shape))
+    centers = rng.uniform(-6, 6, size=(max(k, 2), d))
+    x = (centers[rng.integers(0, max(k, 2), (m, s))]
+         + rng.normal(size=(m, s, d))).astype(np.float32)
+    w = np.ones((m, s), np.float32)
+    w[1, s // 2:] = 0.0
+    w[2] = 0.0
+    x, c, w = (torch.from_numpy(a).to(card) for a in (x, x[0, :k].copy(), w))
+    kw = {**KW, **kw}
+    got = batch_resident.solve_stack(x, c, w, **kw)
+    want = batch_resident.lloyd_solve_plain(x, c, w, **kw)
+    assert torch.equal(got.iters, want.iters)
+    assert torch.equal(got.converged, want.converged)
+    assert torch.equal(got.skips, want.skips)
+    assert torch.equal(got.passes, want.passes)
+    torch.testing.assert_close(got.centroids, want.centroids, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(got.sse, want.sse, rtol=1e-4, atol=1e-4)
+
+
+def test_solve_counts_only_launches(card):
+    x, c, w = _solve_stack(card)
+    before = (batch_resident.launches, resident.launches)
+    batch_resident.lloyd_solve_batched(x[:0], c, w[:0], **KW)   # M = 0
+    assert (batch_resident.launches, resident.launches) == before
+    resident.lloyd_solve_resident(x[0], c, w[0], **KW)
+    assert (batch_resident.launches, resident.launches) == (
+        before[0], before[1] + 1)

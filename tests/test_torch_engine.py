@@ -131,8 +131,7 @@ def test_single_kmeans_matches_reference():
     np.testing.assert_allclose(float(got.asse), float(want.asse), rtol=RTOL)
 
 
-@pytest.mark.parametrize("name", ["batched", "resident", "tuned", "twopass",
-                                  "pallas"])
+@pytest.mark.parametrize("name", ["tuned", "twopass", "pallas"])
 def test_unported_engines_raise(name):
     with pytest.raises(NotImplementedError, match="slice"):
         engine.get_engine(name)
@@ -140,9 +139,10 @@ def test_unported_engines_raise(name):
 
 def test_unported_params_raise():
     x = np.zeros((8, 2), np.float32)
-    for p in (KMeansParams(init="kmeans++"), KMeansParams(prune="bounds")):
-        with pytest.raises(NotImplementedError):
-            kmeans(x, x[:2], params=p, device="cpu")
+    with pytest.raises(NotImplementedError):
+        kmeans(x, x[:2], params=KMeansParams(init="kmeans++"), device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         kmeans(x, x[:2], params=KMeansParams(backend="fussed"), device="cpu")
-    assert engine.available() == ("eager", "fused")
+    with pytest.raises(ValueError, match="prune"):
+        kmeans(x, x[:2], params=KMeansParams(prune="hamerly"), device="cpu")
+    assert engine.available() == ("eager", "fused", "resident", "batched")

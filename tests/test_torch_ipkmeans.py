@@ -97,12 +97,9 @@ def test_eager_backend_matches_reference_jnp():
     (dict(pack="sorted"), "pack"),
     (dict(pack="a2a"), "pack"),
     (dict(merge="hierarchical"), "hierarchical"),
-    (dict(kmeans=JParams(backend="batched")), "batched"),
-    (dict(kmeans=JParams(backend="resident")), "resident"),
     (dict(kmeans=JParams(backend="tuned")), "tuned"),
     (dict(kmeans=JParams(backend="pallas")), "twopass"),
     (dict(kmeans=JParams(init="kmeans||")), "init"),
-    (dict(kmeans=JParams(prune="bounds")), "bounds"),
 ])
 def test_unported_configs_raise(change, match):
     jcfg = dataclasses.replace(JConfig(num_clusters=4, num_subsets=2),
