@@ -27,7 +27,28 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      whole stack and on an 8-lane slice against its plain version;
   6. [resident]: one full-width solve through ``kmeans(...,
      backend="resident")``;
-  7. a ``{"kernels": [...]}`` line, the card's line, and as the last line
+  7. [assign] (run before [main]): the assign kernel against its plain
+     version on one large ragged lane (n = 2**20, k = 4100) and a ragged
+     8-lane stack with an exact tie and an empty cluster, bit for bit the
+     fused pass's assign mode and a repeat; its times;
+  8. [update]: the assign kernel's labels and distances on the main stack
+     against its plain version, then the centroid-update kernel against its
+     plain version on those labels and on a small case with labels -1 and
+     k, bit for bit the fused pass's sums and a repeat; its times, and one
+     large lane;
+  9. [init]: one init sweep at n = 2**23 against 2048 candidates, with
+     psi_prev from a round 0, against its plain version (draws equal except
+     at boundary rows); round 0 draws nothing, no candidate leaves mind as
+     it was, a repeat is bit-identical; its times;
+ 10. [seed]: k-means|| seeding of the main input through ``resolve_init``
+     on the kernels (9 sweeps, 1 assign) and on the plain oracles with the
+     same draws, its stage times; each of the kernel run's sweeps and its
+     weighting assign against the plain version on the same inputs; then
+     the whole job
+     ``ipkmeans(cfg.with_init("kmeans||"))`` on ``backend="batched"``;
+ 11. [twopass]: the main path on ``backend="twopass"`` against the fused
+     engine's run;
+ 12. a ``{"kernels": [...]}`` line, the card's line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no last line.  Without a CUDA
@@ -42,6 +63,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -50,6 +72,10 @@ REPLACES = "src/repro/kernels/fused.py:47"
 SOLVE_SOURCE = CSRC + "lloyd_solve.cu"
 REPLACES_BATCHED = "src/repro/kernels/batch_resident.py:109"
 REPLACES_RESIDENT = "src/repro/kernels/resident.py:151"
+SWEEPS_SOURCE = CSRC + "sweeps.cu"
+REPLACES_ASSIGN = "src/repro/kernels/assign.py:36"
+REPLACES_UPDATE = "src/repro/kernels/centroid_update.py:31"
+REPLACES_INIT = "src/repro/kernels/init.py:60"
 
 # H100 SXM data sheet, at its 700 W limit: f32 without tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -82,6 +108,21 @@ SOLVE_RTOL = SOLVE_ATOL = 1e-4
 MAIN_SSE_RTOL = 1e-5
 # lanes of the main path's stack that the plain version is timed on
 PLAIN_LANES = 8
+# [assign]'s large lane: the seeding's shape class (one lane, many points, a
+# k that is not a multiple of the tile); [init]'s candidates per sweep
+# (ell = 2K, the expected draws of one k-means|| round at K = 1024)
+ASSIGN_N, ASSIGN_K = 1 << 20, 4100
+INIT_C = 2048
+# centroid update against its plain version ([update]): counts exact, sums
+# within UPDATE_REL of their largest magnitude (f32 sums of the same terms
+# in another order)
+UPDATE_REL = 1e-5
+# init sweep against its plain version ([init], [seed]): new_mind within
+# INIT_REL of ||x||^2 + mind (the score ||c||^2 - 2 x.c + ||x||^2 cancels at
+# that scale, so a point that is itself a candidate keeps a rounding residue
+# in both), psi within INIT_REL; a draw may differ only where
+# |u psi_prev - ell mind| is within INIT_REL of ell mind
+INIT_REL = 1e-5
 
 
 def fail(msg: str) -> int:
@@ -112,16 +153,22 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(flops: float, nbytes: float):
+    """The least time for work of ``flops`` f32 operations that must move
+    ``nbytes``: the larger of the two over the card's peaks -> (ms, what
+    bounds it)."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def step_bound_ms(n_lanes: int, s: int, d: int, k: int):
     """Least time for one fused step on these shapes: the larger of the f32
     operations (2*S*k*d per lane, the score product) over the f32 peak and
     the bytes (points, centroids and weights read once, sums, counts and
     sse written once) over the memory rate."""
-    flops = 2.0 * n_lanes * s * k * d
-    nbytes = 4.0 * n_lanes * (s * d + k * d + s + k * d + k + 1)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return bound_ms(2.0 * n_lanes * s * k * d,
+                    4.0 * n_lanes * (s * d + k * d + s + k * d + k + 1))
 
 
 def mixture(gen, n: int, d: int, k: int, device):
@@ -181,13 +228,11 @@ def time_step(tag, x, c, w, reps: int) -> dict:
                 library_ms=lib_ms)
 
 
-def check_case(name, x, c, w, torch):
-    """Phase 2 on one input: both modes against the plain version, and
-    bitwise repeatability.  Returns (ok, max_abs_err of sums)."""
-    from repro_torch.kernels import fused
-    ka = fused.fused_lloyd(x, c, assign_only=True)
-    pa = fused.fused_lloyd_plain(x, c, assign_only=True)
-    torch.cuda.synchronize()
+def label_agreement(name, x, c, ka, pa, torch):
+    """Labels and distances of an assign pass (``ka``) against the plain
+    version's (``pa``) on x (L,S,d), c (L,k,d): labels may differ only at
+    near-ties, mind only within MIND_REL of the scale.  Returns (ok, labels
+    that differ, max |mind error| on the rows whose labels agree)."""
     # exact f64 distances to decide near-ties
     x64, c64 = x.double(), c.double()
     x2 = torch.sum(x64 * x64, dim=-1)
@@ -218,6 +263,20 @@ def check_case(name, x, c, w, torch):
     if n_wide or n_mind_bad:
         print(f"[{name}] FAIL labels beyond tie bound: {n_wide}, mind beyond"
               f" {MIND_REL}: {n_mind_bad}", flush=True)
+        return False, n_diff, float("nan")
+    agree = mind_err[~diff]
+    return True, n_diff, float(agree.max()) if agree.numel() else 0.0
+
+
+def check_case(name, x, c, w, torch):
+    """Phase 2 on one input: both modes against the plain version, and
+    bitwise repeatability.  Returns (ok, max_abs_err of sums)."""
+    from repro_torch.kernels import fused
+    ka = fused.fused_lloyd(x, c, assign_only=True)
+    pa = fused.fused_lloyd_plain(x, c, assign_only=True)
+    torch.cuda.synchronize()
+    ok, n_diff, _ = label_agreement(name, x, c, ka, pa, torch)
+    if not ok:
         return False, float("nan")
 
     ks = fused.fused_lloyd(x, c, w)
@@ -315,12 +374,9 @@ def solve_bound_ms(s: int, d: int, k: int, n_lanes: int, passes: int,
     over the f32 peak, and the bytes (points, weights and seeds read once;
     centroids, sse, iters, converged and the skip counters written once)
     over the memory rate."""
-    flops = 2.0 * k * d * (s * passes - skipped_rows)
-    nbytes = 4.0 * (n_lanes * (s * d + s + k * d + 3) + k * d
-                    + 2 * max(max_iters, 1))
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return bound_ms(2.0 * k * d * (s * passes - skipped_rows),
+                    4.0 * (n_lanes * (s * d + s + k * d + 3) + k * d
+                           + 2 * max(max_iters, 1)))
 
 
 def compare_solve(tag, got, want, torch) -> tuple[bool, float]:
@@ -465,16 +521,27 @@ def phase_small(torch) -> bool:
     return ok
 
 
+def counted_modules() -> dict:
+    """Each kernel's name -> the wrapper module that counts its launches."""
+    from repro_torch.kernels import (assign, batch_resident, centroid_update,
+                                     fused, init, resident)
+    return {"fused_lloyd": fused, "lloyd_solve_batched": batch_resident,
+            "lloyd_solve_resident": resident, "assign": assign,
+            "centroid_update": centroid_update, "init_sweep": init}
+
+
 def reset_counts():
-    from repro_torch.kernels import batch_resident, fused, resident
-    fused.launches = batch_resident.launches = resident.launches = 0
+    for mod in counted_modules().values():
+        mod.launches = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels import batch_resident, fused, resident
-    return {"fused_lloyd": fused.launches,
-            "lloyd_solve_batched": batch_resident.launches,
-            "lloyd_solve_resident": resident.launches}
+    return {name: mod.launches for name, mod in counted_modules().items()}
+
+
+def counts_of(**nonzero) -> dict:
+    """The launch counts of a run that launched only the kernels named."""
+    return {**dict.fromkeys(counted_modules(), 0), **nonzero}
 
 
 def run_path(torch, x, init, cfg, dev):
@@ -510,8 +577,9 @@ def stage_times(torch, x, init, cfg, dev):
 
 
 def phase_main(torch, report: dict, solve_report: dict):
-    """The main path on both engines; returns the batched stack (subsets,
-    masks, seeds) for [resident], or None when a check failed."""
+    """The main path on both engines; returns the main input, its seeds, the
+    batched stack and both runs for the later phases, or None when a check
+    failed."""
     import numpy as np
     from repro_torch.core import IPKMeansConfig, KMeansParams
     from repro_torch.kernels import batch_resident as br
@@ -594,8 +662,7 @@ def phase_main(torch, report: dict, solve_report: dict):
           f"exact: {bounds_same}", flush=True)
     ok = (again and sane(res_f) and sane(res_b)
           and counts_f["fused_lloyd"] > 0
-          and counts_b == {"fused_lloyd": 0, "lloyd_solve_batched": 1,
-                           "lloyd_solve_resident": 0}
+          and counts_b == counts_of(lloyd_solve_batched=1)
           and counts_p["lloyd_solve_batched"] == 1
           and n_diff == 0 and sse_rel <= MAIN_SSE_RTOL and bounds_same)
     if not ok:
@@ -671,17 +738,19 @@ def phase_main(torch, report: dict, solve_report: dict):
     # centroids: the shape of the first slice's launches
     report.update(time_step("stack", subsets, res_f.intermediate.contiguous(),
                             masks, reps=3))
-    return subsets, masks, init
+    return dict(x=x, init=init, subsets=subsets, masks=masks, res_f=res_f,
+                res_b=res_b, counts_f=counts_f, s2_fused=st_f[1],
+                config=config, sane=sane, describe=describe)
 
 
-def phase_resident(torch, report: dict, stack) -> bool:
+def phase_resident(torch, report: dict, main: dict) -> bool:
     """One full-width solve (lane 0 of the main path's stack) through
     ``kmeans(..., backend="resident")``, then the wrapper's times."""
     from repro_torch.core import KMeansParams
     from repro_torch.core.kmeans import kmeans
     from repro_torch.kernels import batch_resident as br
     from repro_torch.kernels import resident
-    subsets, masks, init = stack
+    subsets, masks, init = main["subsets"], main["masks"], main["init"]
     x0, w0 = subsets[0], masks[0]
     params = KMeansParams(max_iters=MAX_ITERS, tol=TOL, backend="resident",
                           reseed_empty=True)
@@ -722,10 +791,469 @@ def phase_resident(torch, report: dict, stack) -> bool:
           f"ms, iters {int(res_f.iters)}", flush=True)
     report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                   library_ms=None, max_abs_err=err)
-    return ok and counts == {"fused_lloyd": 0, "lloyd_solve_batched": 0,
-                             "lloyd_solve_resident": 1} and bool(
+    return ok and counts == counts_of(lloyd_solve_resident=1) and bool(
         torch.equal(res.iters.reshape(1), got.iters)) and int(
         res_f.iters) == int(res.iters)
+
+
+def library_scores(x, c, rows: int = 1 << 14):
+    """Yardstick for the assign and init-sweep kernels from PyTorch library
+    calls: matmul scores and the row min/argmin, over row chunks.  Timed
+    here only; the port never calls it."""
+    import torch
+    cn = torch.sum(c * c, dim=1)
+    return [torch.min(cn - 2.0 * (x[lo:lo + rows] @ c.T), dim=1)
+            for lo in range(0, x.shape[0], rows)]
+
+
+def phase_assign(torch, report: dict):
+    """The assign kernel against its plain version on one large ragged lane
+    (n = 2**20, k = 4100) and on a ragged 8-lane stack listed out of order,
+    with an exact tie and an empty cluster; bit for bit the fused pass's
+    assign mode, and a repeat.  Returns the large lane and its labels for
+    [update], or None when a check failed."""
+    from repro_torch.kernels import assign, fused
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n1, k1 = ASSIGN_N, ASSIGN_K
+    x1 = mixture(gen, n1, D, K, dev).unsqueeze(0)
+    c1 = x1[:, torch.randperm(n1, generator=gen, device=dev)[:k1]].contiguous()
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = assign.assign(x1, c1)
+    plain = assign.assign_plain(x1, c1, one)
+    torch.cuda.synchronize()
+    ok, n_diff, err = label_agreement("assign", x1, c1, got, plain, torch)
+
+    xr = torch.randn((8, 1000, 17), generator=gen, device=dev) * 3.0
+    cr = torch.randn((8, 130, 17), generator=gen, device=dev) * 3.0
+    cr[:, 7] = cr[:, 3]                     # duplicates: 7 and 129 must lose
+    cr[:, 129] = cr[:, 50]
+    cr[:, 11] = 1e3                         # nothing maps here
+    lanes = torch.tensor([7, 0, 5, 2, 6, 1, 4, 3], dtype=torch.int32,
+                         device=dev)
+    gr = assign.assign(xr, cr, lanes)
+    pr = assign.assign_plain(xr, cr, lanes)
+    torch.cuda.synchronize()
+    sel = lanes.long()
+    ok_r, n_diff_r, err_r = label_agreement("assign ragged", xr[sel],
+                                            cr[sel], gr, pr, torch)
+    ties = not bool(((gr.labels == 7) | (gr.labels == 129)
+                     | (gr.labels == 11)).any())
+    fused_same = (identical(got, fused.fused_lloyd(x1, c1, assign_only=True))
+                  and identical(gr, fused.fused_lloyd(xr, cr, lanes=lanes,
+                                                      assign_only=True)))
+    repeat = (identical(got, assign.assign(x1, c1))
+              and identical(gr, assign.assign(xr, cr, lanes)))
+    torch.cuda.synchronize()
+    print(f"[assign] ragged stack: duplicates 7/129 and far cluster 11 took "
+          f"no point: {ties}; both inputs bit-identical to the fused pass's "
+          f"assign mode: {fused_same}; repeat bit-identical: {repeat}",
+          flush=True)
+    if not (ok and ok_r and ties and fused_same and repeat):
+        print("[assign] FAIL", flush=True)
+        return None
+
+    ms = cuda_time_ms(lambda: assign.assign(x1, c1), reps=5)
+    plain_ms = cuda_time_ms(lambda: assign.assign_plain(x1, c1, one), reps=2,
+                            warmup=1)
+    lib_ms = cuda_time_ms(lambda: library_scores(x1[0], c1[0]), reps=2,
+                          warmup=1)
+    bound, by = bound_ms(2.0 * n1 * k1 * D,
+                              4.0 * (n1 * D + k1 * D) + 8.0 * n1)
+    print(f"[assign] one lane {n1}x{D}, k={k1}: kernel {ms:.4f} ms "
+          f"({2.0 * n1 * k1 * D / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
+          f"version {plain_ms:.4f} ms, library yardstick {lib_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}); labels that differ from the plain "
+          f"version (near-ties): {n_diff} of {n1} and {n_diff_r} of "
+          f"{gr.labels.numel()}", flush=True)
+    report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                  library_ms=lib_ms, max_abs_err=max(err, err_r))
+    return x1, got.labels, k1
+
+
+def library_update(x, lab, w, k):
+    """Yardstick for the centroid update from PyTorch library calls:
+    ``index_add_`` of the weighted points and ``bincount`` of the weights by
+    label.  Timed here only."""
+    import torch
+    n_l, s, d = x.shape
+    flat = (lab.long() + k * torch.arange(n_l, device=x.device).unsqueeze(1)
+            ).flatten()
+    sums = torch.zeros((n_l * k, d), device=x.device).index_add_(
+        0, flat, (x * w.unsqueeze(-1)).reshape(-1, d))
+    counts = torch.bincount(flat, weights=w.flatten(), minlength=n_l * k)
+    return sums, counts
+
+
+def phase_update(torch, report: dict, main: dict, big) -> bool:
+    """The assign kernel on the main stack against the fused run's
+    converged centroids, held against its plain version; then the
+    centroid-update kernel against its plain version on those labels (the
+    packed masks as weights) and on a small case with an empty cluster and
+    labels of -1 and k; bit for bit the fused pass's sums on the same
+    labels, and a repeat; then its times, and one large lane."""
+    from repro_torch.kernels import assign, centroid_update, fused
+    dev = torch.device("cuda")
+    subsets, masks = main["subsets"], main["masks"]
+    cents = main["res_f"].intermediate.contiguous()
+    m, s, d = subsets.shape
+    lanes = torch.arange(m, dtype=torch.int32, device=dev)
+    ka = assign.assign(subsets, cents)
+    pa = assign.assign_plain(subsets, cents, lanes)
+    torch.cuda.synchronize()
+    lab_ok, n_ties, _ = label_agreement("update", subsets, cents, ka, pa,
+                                        torch)
+    del pa
+    lab = ka.labels
+    got = centroid_update.centroid_update(subsets, lab, masks, K)
+    plain = centroid_update.centroid_update_plain(subsets, lab, masks, K,
+                                                  lanes)
+    step = fused.fused_lloyd(subsets, cents, masks)
+    again = centroid_update.centroid_update(subsets, lab, masks, K)
+    torch.cuda.synchronize()
+    cnt_ok = torch.equal(got[1], plain[1])
+    err = float(torch.max(torch.abs(got[0] - plain[0])))
+    scale = float(torch.max(torch.abs(plain[0])))
+    fused_same = torch.equal(got[0], step.sums) and torch.equal(got[1],
+                                                               step.counts)
+    repeat = identical(got, again)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    xs = torch.randn((3, 1000, 17), generator=gen, device=dev) * 3.0
+    ws = (torch.rand((3, 1000), generator=gen, device=dev) > 0.3).float()
+    ls = torch.randint(0, 130, (3, 1000), generator=gen, device=dev,
+                       dtype=torch.int32)
+    ls[ls == 11] = 12                       # cluster 11 stays empty
+    ls[:, :40] = -1
+    ls[:, 40:70] = 130
+    gs = centroid_update.centroid_update(xs, ls, ws, 130)
+    ps = centroid_update.centroid_update_plain(
+        xs, ls, ws, 130, torch.arange(3, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    small_ok = (torch.equal(gs[1], ps[1])
+                and bool(torch.allclose(gs[0], ps[0], rtol=UPDATE_REL,
+                                        atol=1e-4))
+                and float(gs[1].sum()) == float(ws[:, 70:].sum())
+                and not bool(gs[1][:, 11].any()))
+    print(f"[update] main stack {m}x{s}x{d}, k={K}: the assign kernel's "
+          f"labels differ from the plain version's at {n_ties} near-ties; "
+          f"centroid update: counts equal={cnt_ok}, "
+          f"sums max|err| {err:.3g} (tol {UPDATE_REL} x {scale:.3g}); "
+          f"bit-identical to the fused pass's sums: {fused_same}; repeat "
+          f"bit-identical: {repeat}; small case with labels -1 and k and an "
+          f"empty cluster agrees: {small_ok}", flush=True)
+    if not (lab_ok and cnt_ok and err <= UPDATE_REL * scale and fused_same
+            and repeat and small_ok):
+        print("[update] FAIL", flush=True)
+        return False
+
+    ms = cuda_time_ms(lambda: centroid_update.centroid_update(
+        subsets, lab, masks, K), reps=3)
+    plain_ms = cuda_time_ms(lambda: centroid_update.centroid_update_plain(
+        subsets, lab, masks, K, lanes), reps=2, warmup=1)
+    lib_ms = cuda_time_ms(lambda: library_update(subsets, lab, masks, K),
+                          reps=2, warmup=1)
+    bound, by = bound_ms(2.0 * m * s * d,
+                              4.0 * (m * s * d + 2 * m * s + m * K * d
+                                     + m * K))
+    x1, lab1, k1 = big
+    w1 = torch.ones(x1.shape[:2], device=dev)
+    big_ms = cuda_time_ms(lambda: centroid_update.centroid_update(
+        x1, lab1, w1, k1), reps=2, warmup=1)
+    big_bound, _ = bound_ms(2.0 * x1.shape[1] * D,
+                                 4.0 * (x1.shape[1] * (D + 2) + k1 * (D + 1)))
+    print(f"[update] kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
+          f"library yardstick {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+          f"one lane of {x1.shape[1]} points, k={k1} (one block): "
+          f"{big_ms:.4f} ms against a bound of {big_bound:.4f} ms",
+          flush=True)
+    report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                  library_ms=lib_ms, max_abs_err=err, one_lane_ms=big_ms,
+                  one_lane_bound_ms=big_bound)
+    return True
+
+
+def sweep_agreement(tag, got, plain, x, u, psi_prev, ell, torch):
+    """An init sweep (``got``) against its plain version on the same inputs:
+    mind within INIT_REL of ||x||^2 + mind, psi within INIT_REL, and draws
+    equal except where |u psi_prev - ell mind| is within INIT_REL of ell
+    mind.  Returns (ok, draws that differ, max |mind error|)."""
+    x2 = torch.sum(x * x, dim=1)
+    pm = plain[0]
+    err = torch.abs(got[0] - pm)
+    fin = torch.isfinite(pm)
+    mind_ok = bool((err[fin] <= INIT_REL * (x2[fin] + pm[fin])).all()) and \
+        torch.equal(got[0][~fin], pm[~fin])
+    psi_rel = abs(float(got[2]) - float(plain[2])) / max(abs(float(plain[2])),
+                                                         1e-30)
+    diff = got[1] != plain[1]
+    margin = torch.abs(u * psi_prev - ell * pm) / (ell * pm)
+    n_diff = int(diff.sum())
+    n_wide = int((diff & ~(margin <= INIT_REL)).sum())
+    worst = float(margin[diff].max()) if n_diff else 0.0
+    max_err = float(err[fin].max()) if bool(fin.any()) else 0.0
+    ok = mind_ok and psi_rel <= INIT_REL and n_wide == 0
+    print(f"[{tag}] against the plain version: mind within {INIT_REL} of "
+          f"||x||^2+mind: {mind_ok} (max|err| {max_err:.3g}), psi rel "
+          f"{psi_rel:.3g}, draws that differ {n_diff} (all within the margin"
+          f": {n_wide == 0}; largest margin {worst:.3g}), {int(got[1].sum())}"
+          f" drawn{'' if ok else '  FAIL'}", flush=True)
+    return ok, n_diff, max_err
+
+
+def phase_init(torch, report: dict, main: dict) -> bool:
+    """One init sweep at the main input's size (n = 2**23, d = 64) against
+    INIT_C = 2048 candidates, with psi_prev from a preceding round-0 sweep,
+    against its plain version; round 0 draws nothing, a round with no
+    candidate leaves mind as it was, a repeat is bit-identical."""
+    from repro_torch.kernels import init, ref
+    dev = torch.device("cuda")
+    x = main["x"]
+    n = x.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    ell = 2.0 * K
+    w = torch.ones(n, device=dev)
+    first = x[torch.randint(0, n, (1,), generator=gen, device=dev)]
+    inf = torch.full((n,), torch.inf, device=dev)
+    m0, s0, psi0 = init.init_sweep(x, first, inf, torch.rand(
+        n, generator=gen, device=dev), 0.0, ell=ell, weights=w)
+    cands = x[torch.randperm(n, generator=gen, device=dev)[:INIT_C]]
+    u = torch.rand(n, generator=gen, device=dev)
+    got = init.init_sweep(x, cands, m0, u, psi0, ell=ell, weights=w)
+    plain = ref.init_sweep_ref(x, cands, m0, u, psi0, ell=ell, weights=w)
+    again = init.init_sweep(x, cands, m0, u, psi0, ell=ell, weights=w)
+    none = init.init_sweep(x, cands[:0], got[0], u, got[2], ell=ell,
+                           weights=w)
+    torch.cuda.synchronize()
+    ok, n_diff, err = sweep_agreement("init", got, plain, x, u, psi0, ell,
+                                      torch)
+    round0 = not bool(s0.any())
+    repeat = identical(got, again)
+    unchanged = torch.equal(none[0], got[0]) and bool(none[1].any())
+    print(f"[init] round 0 (psi_prev = 0) drew nothing: {round0}; no "
+          f"candidate leaves mind unchanged and still draws: {unchanged}; "
+          f"repeat bit-identical: {repeat}", flush=True)
+    if not (ok and round0 and repeat and unchanged):
+        print("[init] FAIL", flush=True)
+        return False
+    nc = cands.shape[0]
+    ms = cuda_time_ms(lambda: init.init_sweep(x, cands, m0, u, psi0, ell=ell,
+                                              weights=w), reps=5)
+    plain_ms = cuda_time_ms(lambda: ref.init_sweep_ref(
+        x, cands, m0, u, psi0, ell=ell, weights=w), reps=2, warmup=1)
+    lib_ms = cuda_time_ms(lambda: library_scores(x, cands), reps=2, warmup=1)
+    bound, by = bound_ms(2.0 * n * nc * D,
+                              4.0 * (n * D + nc * D + 3 * n + n + 1) + n)
+    print(f"[init] sweep {n}x{D} against {nc} candidates: kernel {ms:.4f} ms "
+          f"({2.0 * n * nc * D / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
+          f"version {plain_ms:.4f} ms, library yardstick (scores and row "
+          f"min/argmin) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})",
+          flush=True)
+    report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                  library_ms=lib_ms, max_abs_err=err)
+    return True
+
+
+def phase_seed(torch, init_rep: dict, assign_rep: dict, main: dict) -> bool:
+    """k-means|| seeding on the main input: through ``resolve_init`` on the
+    kernels (launch counts), stage by stage (times), each kernel stage
+    against its plain version on the same inputs, the kernel seeding
+    against the plain oracles' with the same draws, then the whole job
+    ``ipkmeans(cfg.with_init("kmeans||"))`` on ``backend="batched"``."""
+    from repro_torch.core import init as seeding
+    from repro_torch.core.ipkmeans import _resolve_init_stage, ipkmeans
+    from repro_torch.kernels import assign, ref
+    from repro_torch.kernels.fused import AssignOut
+    dev = torch.device("cuda")
+    x = main["x"]
+    n = x.shape[0]
+    rounds = seeding.default_rounds(n, K)
+    ell = 2.0 * K
+    w = torch.ones(n, device=dev)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    seeds = seeding.resolve_init(x, K, "kmeans||", backend="kernel",
+                                 generator=gen())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+
+    draws = seeding.parallel_draws(n, K, rounds, gen(), dev)
+    stages = {}
+
+    def staged(backend):
+        """One seeding, timed stage by stage; each sweep's inputs and
+        outputs are kept."""
+        sweeps = []
+        inner = seeding._sweep(backend)
+
+        def sweep(*args, **kw):
+            out = inner(*args, **kw)
+            sweeps.append((args, kw, out))
+            return out
+
+        t = time.perf_counter()
+        with mock.patch.object(seeding, "_sweep", lambda _: sweep):
+            out = seeding.oversample(x, draws, ell=ell, weights=w,
+                                     backend=backend)
+        torch.cuda.synchronize()
+        stages[backend] = [time.perf_counter() - t]
+        t = time.perf_counter()
+        cands = x[out[0]]
+        cw = seeding.candidate_weights(x, cands, w, backend)
+        torch.cuda.synchronize()
+        stages[backend].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        chosen = seeding.kmeans_plus_plus(cands, K, weights=cw,
+                                          uniforms=draws.recluster)
+        torch.cuda.synchronize()
+        stages[backend].append(time.perf_counter() - t)
+        return out, cands, chosen, sweeps
+
+    kern, k_cands, k_seeds, k_sweeps = staged("kernel")
+    plain, _, p_seeds, p_sweeps = staged("plain")
+    same_draws = torch.equal(k_seeds, seeds)
+    kt, pt = stages["kernel"], stages["plain"]
+    print(f"[seed] resolve_init(kmeans||) on the kernels: {secs:.3f} s, "
+          f"launches {counts}; stage by stage: sweeps {kt[0]:.3f} s, "
+          f"weighting assign {kt[1]:.3f} s, recluster {kt[2]:.3f} s (plain "
+          f"oracles: {pt[0]:.3f} / {pt[1]:.3f} / {pt[2]:.3f} s); staged seeds"
+          f" bit-identical to resolve_init's: {same_draws}", flush=True)
+    print(f"[seed] rounds {rounds}, ell {ell:.0f}, candidates "
+          f"{kern[0].numel()} (plain {plain[0].numel()}), psi "
+          f"{[f'{v:.6e}' for v in kern[2]]}", flush=True)
+    # the candidates each sweep scored; the weighting assign scores the pool
+    scored = sum(int(args[1].shape[0]) for args, _, _ in k_sweeps)
+    sweep_bound, sweep_by = bound_ms(2.0 * n * D * scored,
+                                     4.0 * (rounds + 1) * n * (D + 3))
+    assign_bound, assign_by = bound_ms(2.0 * n * D * kern[0].numel(),
+                                       4.0 * n * (D + 2))
+    print(f"[seed] score work: the sweeps {2.0 * n * D * scored / 1e12:.3f} "
+          f"TFLOP against {scored} candidates in all, bound "
+          f"{sweep_bound:.4f} ms ({sweep_by}); the weighting assign "
+          f"{2.0 * n * D * kern[0].numel() / 1e12:.3f} TFLOP, bound "
+          f"{assign_bound:.4f} ms ({assign_by})", flush=True)
+    # each stage of the kernel run against its plain version on the same
+    # inputs: every sweep, then the weighting assign over the pool
+    stages_ok = True
+    for r, (args, kw, got) in enumerate(k_sweeps):
+        want = ref.init_sweep_ref(*args, **kw)
+        stages_ok &= sweep_agreement(f"seed sweep {r}", got, want, x,
+                                     args[3], args[4], ell, torch)[0]
+    ka = assign.assign(x, k_cands)
+    pa = ref.assign_ref(x, k_cands)
+    torch.cuda.synchronize()
+    lab_ok, n_ties, _ = label_agreement(
+        "seed", x[None], k_cands[None], AssignOut(*(t[None] for t in ka)),
+        AssignOut(*(t[None] for t in pa)), torch)
+    del ka, pa
+    agree = kern[0].numel() == plain[0].numel() and torch.equal(k_seeds,
+                                                                p_seeds)
+    if agree:
+        print(f"[seed] kernel and plain seedings: the same "
+              f"{kern[0].numel()} candidates and the same {K} chosen rows",
+              flush=True)
+    else:
+        # where the two runs part: the first sweep whose draws differ (its
+        # candidates are the same in both runs), else the weighting labels
+        n_rows = int((~torch.all(k_seeds == p_seeds, dim=1)).sum())
+        r = next((r for r, (kr, pr) in enumerate(zip(k_sweeps, p_sweeps))
+                  if not torch.equal(kr[2][1], pr[2][1])), None)
+        if r is None:
+            agree = n_ties > 0
+            where = (f"the weighting assign: every sweep drew the same "
+                     f"rows, and the {n_ties} near-tie weighting labels "
+                     f"above move mass between candidates, which the "
+                     f"recluster's draws then follow")
+        else:
+            args, _, want = p_sweeps[r]
+            diff = k_sweeps[r][2][1] != want[1]
+            margin = (torch.abs(args[3] * args[4] - ell * want[0])
+                      / (ell * want[0]))[diff]
+            agree = bool((margin <= INIT_REL).all())
+            where = (f"sweep {r}, whose draws differ at "
+                     f"{int(diff.sum())} rows, margins "
+                     f"{[f'{v:.3g}' for v in margin.tolist()[:8]]} (bound "
+                     f"{INIT_REL})")
+        print(f"[seed] kernel and plain seedings differ at {n_rows} of {K} "
+              f"chosen rows; they part at {where}: "
+              f"{'boundary effects' if agree else 'FAIL'}", flush=True)
+    ok = (same_draws and stages_ok and lab_ok and agree
+          and counts == counts_of(init_sweep=rounds + 1, assign=1)
+          and tuple(seeds.shape) == (K, D)
+          and bool(torch.isfinite(seeds).all()))
+    if not ok:
+        print("[seed] FAIL", flush=True)
+        return False
+
+    # the whole job: seeds drawn inside ipkmeans, then S1-S3
+    cfg = main["config"]("batched").with_init("kmeans||")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ipkmeans(x, None, cfg, generator=gen(), device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    t0 = time.perf_counter()
+    job_seeds, cfg_given = _resolve_init_stage(x, None, cfg, generator=gen())
+    torch.cuda.synchronize()
+    t_seed = time.perf_counter() - t0
+    st = stage_times(torch, x, job_seeds, cfg_given, dev)
+    main["describe"]("batched kmeans||", res, secs, counts, st)
+    res_b = main["res_b"]
+    print(f"[seed] whole job: seeding {t_seed:.3f} s, S1 {st[0]:.3f} s, S2 "
+          f"{st[1]:.3f} s, S3 {st[2]:.3f} s; SSE {float(res.sse):.6e} "
+          f"against {float(res_b.sse):.6e} from the given seeds (ratio "
+          f"{float(res.sse) / float(res_b.sse):.4f})", flush=True)
+    init_rep["launches"] = counts["init_sweep"]
+    # the seeding path's count; the twopass path's stands beside it
+    assign_rep["launches"] = counts["assign"]
+    assign_rep["launches_by_path"] = {"kmeans|| seeding": counts["assign"]}
+    ok = (main["sane"](res) and torch.equal(job_seeds, seeds)
+          and torch.equal(st[5].iters, res.subset_iters)
+          and counts == counts_of(init_sweep=rounds + 1, assign=1,
+                                  lloyd_solve_batched=1))
+    if not ok:
+        print("[seed] FAIL whole job", flush=True)
+    return ok
+
+
+def phase_twopass(torch, update_rep: dict, assign_rep: dict,
+                  main: dict) -> bool:
+    """The main path on ``backend="twopass"``: its lanes and SSE against the
+    fused engine's run of the same input and seeds."""
+    x, init = main["x"], main["init"]
+    dev = torch.device("cuda")
+    cfg = main["config"]("twopass")
+    res, secs, counts = run_path(torch, x, init, cfg, dev)
+    st = stage_times(torch, x, init, cfg, dev)
+    main["describe"]("twopass", res, secs, counts, st)
+    res_f, counts_f = main["res_f"], main["counts_f"]
+    n_diff = int((res.subset_iters != res_f.subset_iters).sum())
+    sse_rel = abs(float(res.sse) - float(res_f.sse)) / float(res_f.sse)
+    print(f"[twopass] S2 {st[1]:.3f} s (fused engine {main['s2_fused']:.3f} "
+          f"s); launches: assign {counts['assign']} (the fused engine's "
+          f"{counts_f['fused_lloyd']}: one a trip, one a reseed pass, one "
+          f"final scoring pass), centroid update {counts['centroid_update']} "
+          f"(one a trip); lanes whose iterations differ from fused's "
+          f"{n_diff}; SSE rel {sse_rel:.3g} (rtol {MAIN_SSE_RTOL})",
+          flush=True)
+    update_rep["launches"] = counts["centroid_update"]
+    assign_rep["launches_by_path"]["twopass"] = counts["assign"]
+    ok = (main["sane"](res) and n_diff == 0 and sse_rel <= MAIN_SSE_RTOL
+          and counts == counts_of(assign=counts_f["fused_lloyd"],
+                                  centroid_update=counts["centroid_update"])
+          and 0 < counts["centroid_update"] < counts["assign"])
+    if not ok:
+        print("[twopass] FAIL", flush=True)
+    return ok
+
 
 
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -747,8 +1275,8 @@ def main() -> int:
     smi = nvidia_smi_line()
     print(smi, flush=True)
 
-    from repro_torch.kernels import _build, batch_resident, fused
-    sources = [fused.SOURCE, batch_resident.SOURCE]
+    from repro_torch.kernels import _build, assign, batch_resident, fused
+    sources = [fused.SOURCE, batch_resident.SOURCE, assign.SOURCE]
     t0 = time.perf_counter()
     # one nvcc for each source, all started together
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -759,27 +1287,45 @@ def main() -> int:
           f"(nvcc " + ", ".join(f"{_build.build_seconds.get(src, 0.0):.2f} s"
                                 for src in sources) + ")", flush=True)
 
-    report = {"name": "fused_lloyd", "route": "cuda", "source": SOURCE,
-              "replaces": REPLACES}
-    batched = {"name": "lloyd_solve_batched", "route": "cuda",
-               "source": SOLVE_SOURCE, "replaces": REPLACES_BATCHED}
-    res_rep = {"name": "lloyd_solve_resident", "route": "cuda",
-               "source": SOLVE_SOURCE, "replaces": REPLACES_RESIDENT}
+    def rep(name, source, replaces):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces}
+
+    report = rep("fused_lloyd", SOURCE, REPLACES)
+    batched = rep("lloyd_solve_batched", SOLVE_SOURCE, REPLACES_BATCHED)
+    res_rep = rep("lloyd_solve_resident", SOLVE_SOURCE, REPLACES_RESIDENT)
+    assign_rep = rep("assign", SWEEPS_SOURCE, REPLACES_ASSIGN)
+    update_rep = rep("centroid_update", SWEEPS_SOURCE, REPLACES_UPDATE)
+    init_rep = rep("init_sweep", SWEEPS_SOURCE, REPLACES_INIT)
     if not phase_kernel(torch, report):
         return fail("fused kernel against its plain version")
     if not phase_solve(torch, batched):
         return fail("whole-solve kernel against its plain version")
     if not phase_small(torch):
         return fail("small-input agreement, card against CPU")
-    stack = phase_main(torch, report, batched)
-    if stack is None:
+    big = phase_assign(torch, assign_rep)
+    if big is None:
+        return fail("assign kernel against its plain version")
+    main_run = phase_main(torch, report, batched)
+    if main_run is None:
         return fail("main path")
-    if not phase_resident(torch, res_rep, stack):
+    if not phase_resident(torch, res_rep, main_run):
         return fail("resident solve")
-    kernels = [{key: rep[key] for key in KEYS} for rep in (report, batched,
-                                                           res_rep)]
-    extra = {key: batched[key] for key in batched if key not in KEYS}
-    print(json.dumps({"whole_solve_stack": extra}), flush=True)
+    if not phase_update(torch, update_rep, main_run, big):
+        return fail("centroid-update kernel against its plain version")
+    del big
+    if not phase_init(torch, init_rep, main_run):
+        return fail("init-sweep kernel against its plain version")
+    if not phase_seed(torch, init_rep, assign_rep, main_run):
+        return fail("k-means|| seeding")
+    if not phase_twopass(torch, update_rep, assign_rep, main_run):
+        return fail("twopass engine on the main path")
+    reports = (report, batched, res_rep, assign_rep, update_rep, init_rep)
+    kernels = [{key: r[key] for key in KEYS + ("launches_by_path",)
+                if key in r} for r in reports]
+    for r in (batched, update_rep):
+        extra = {key: r[key] for key in r if key not in KEYS}
+        print(json.dumps({r["name"]: extra}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,10 @@
 from repro_torch.core.ipkmeans import IPKMeansConfig, IPKMeansResult, ipkmeans
 from repro_torch.core.kmeans import (KMeansParams, KMeansResult, kmeans,
                                      kmeans_batched)
-from repro_torch.core import kdtree, merge, metrics
+from repro_torch.core import init, kdtree, merge, metrics
 
 __all__ = [
     "IPKMeansConfig", "IPKMeansResult", "ipkmeans",
     "KMeansParams", "KMeansResult", "kmeans", "kmeans_batched",
-    "kdtree", "merge", "metrics",
+    "init", "kdtree", "merge", "metrics",
 ]

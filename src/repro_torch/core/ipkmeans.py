@@ -10,9 +10,11 @@ Three stages (Section 2):
       launch per Lloyd trip (``backend="fused"``)
   S3  merge             : min-ASSE selection, then the SSE over the dataset
 
-This slice covers ``partition="kd_axis"``, ``s1`` ``"auto"``/``"sort"``,
-``pack="scatter"``, ``merge="min_asse"`` and ``init="given"``; every other
-value raises ``NotImplementedError`` naming the slice that brings it.
+Before S1, with ``init`` other than ``"given"``, the shared seeds are drawn
+from the whole dataset (``core/init.py``).  The port covers
+``partition="kd_axis"``, ``s1`` ``"auto"``/``"sort"``, ``pack="scatter"``,
+``merge="min_asse"`` and every ``init``; every other value raises
+``NotImplementedError`` naming the slice that brings it.
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import kdtree, merge, metrics
-from repro_torch.core.kmeans import (KMeansParams, KMeansResult, check_params,
-                                     kmeans_batched)
+from repro_torch.core.init import INIT_METHODS, resolve_init
+from repro_torch.core.kmeans import (KMeansParams, KMeansResult, _init_backend,
+                                     check_params, kmeans_batched)
 from repro_torch.device import as_f32, resolve_device
 
 REDUCE_MODES = ("exact", "int8ef")
@@ -57,10 +60,25 @@ class IPKMeansConfig:
                              f"(expected one of {S1_MODES})")
 
     def with_backend(self, backend: str) -> "IPKMeansConfig":
-        """Same config, different Lloyd engine ('eager' | 'fused' |
-        'resident' | 'batched')."""
+        """Same config, different Lloyd engine ('eager' | 'twopass' |
+        'fused' | 'resident' | 'batched')."""
         return dataclasses.replace(
             self, kmeans=self.kmeans._replace(backend=backend))
+
+    def with_init(self, init: str) -> "IPKMeansConfig":
+        """Same config, different seeding ('given' | 'sample' | 'kmeans++' |
+        'kmeans||'): other than "given", ``ipkmeans`` draws the shared seeds
+        itself instead of taking ``init_centroids``."""
+        if init not in INIT_METHODS:
+            raise ValueError(f"unknown init: {init!r} "
+                             f"(expected one of {INIT_METHODS})")
+        return dataclasses.replace(self, kmeans=self.kmeans._replace(
+            init=init))
+
+    @property
+    def init(self) -> str:
+        """The seeding strategy (it lives on the nested ``KMeansParams``)."""
+        return self.kmeans.init
 
     def subset_capacity(self, n: int) -> int:
         """Static bound on points per subset (tensor packing size)."""
@@ -133,18 +151,41 @@ def _merge_stage(points: torch.Tensor, res: KMeansResult):
     return final, metrics.sse(points, final)
 
 
-def ipkmeans(points, init_centroids, cfg: IPKMeansConfig, *,
+def _resolve_init_stage(points: torch.Tensor, init_centroids,
+                        cfg: IPKMeansConfig, draws=None,
+                        generator: torch.Generator | None = None):
+    """The seeding stage: with ``cfg.init`` other than ``"given"``, the
+    shared per-reducer seeds drawn from the whole dataset -> ``(seeds,
+    cfg.with_init("given"))``; otherwise the given seeds and ``cfg``."""
+    if cfg.init == "given":
+        if init_centroids is None:
+            raise ValueError('cfg.init="given" needs init_centroids')
+        return init_centroids, cfg
+    seeds = resolve_init(points, cfg.num_clusters, cfg.init,
+                         backend=_init_backend(cfg.kmeans.backend),
+                         draws=draws, generator=generator)
+    return seeds, cfg.with_init("given")
+
+
+def ipkmeans(points, init_centroids, cfg: IPKMeansConfig, *, draws=None,
+             generator: torch.Generator | None = None,
              device=None) -> IPKMeansResult:
     """Single-process IPKMeans: ``points (n, d)``, the shared seeds
     ``init_centroids (K, d)`` every reducer starts from, and ``cfg``.
 
-    Runs on ``device`` (default: CUDA, raising without a card).  Each stage
-    is also reachable alone (``_partition_and_pack``, ``kmeans_batched``,
-    ``_merge_stage``), which is how ``chip_smoke.py`` times them.
+    With ``cfg.init`` other than ``"given"`` the seeds are drawn from the
+    whole dataset before S1, from ``draws`` or ``generator``
+    (``core/init.py``), and ``init_centroids`` may be ``None``.  Runs on
+    ``device`` (default: CUDA, raising without a card).  Each stage is also
+    reachable alone (``_resolve_init_stage``, ``_partition_and_pack``,
+    ``kmeans_batched``, ``_merge_stage``), which is how ``chip_smoke.py``
+    times them.
     """
     check_config(cfg)
     dev = resolve_device(device)
     x = as_f32(points, dev)
+    init_centroids, cfg = _resolve_init_stage(x, init_centroids, cfg, draws,
+                                              generator)
     part, subsets, masks = _partition_and_pack(x, cfg)
     res = kmeans_batched(subsets, masks, init_centroids, cfg.kmeans,
                          device=dev)

@@ -6,7 +6,10 @@ The solve is delegated whole to a :class:`repro_torch.kernels.engine
 oracles, the reference's ``jnp`` role), ``fused`` (the hand-written fused
 kernel, one launch per Lloyd trip), ``resident`` (the whole-solve kernel,
 one launch per subset) or ``batched`` (the whole-solve kernel, one launch
-per stack).  Seeding other than ``init="given"`` comes in a later slice.
+per stack), or ``twopass`` (the assign kernel, then the centroid-update
+kernel, two launches per Lloyd trip).  ``kmeans`` seeds itself when
+``params.init`` is not ``"given"`` (``core/init.py``); stacks always take
+their seeds.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import metrics
+from repro_torch.core.init import INIT_METHODS, resolve_init
 from repro_torch.device import as_f32, resolve_device
 from repro_torch.kernels import engine as engines
 
@@ -22,14 +26,15 @@ from repro_torch.kernels import engine as engines
 class KMeansParams(NamedTuple):
     max_iters: int = 300
     tol: float = 1e-6             # paper: "until centroids stop moving"
-    backend: str = "eager"        # 'eager' | 'fused' | 'resident' |
-                                  # 'batched' (later: 'twopass', 'tuned')
+    backend: str = "eager"        # 'eager' | 'twopass' | 'fused' |
+                                  # 'resident' | 'batched' (later: 'tuned')
     reseed_empty: bool = False    # re-seed empty clusters at farthest points
     prune: str = "none"           # 'none' | 'bounds' (bound-gated block
                                   # skipping in the whole-solve kernels; the
                                   # same result on every engine)
-    init: str = "given"           # 'given' (later: 'sample' | 'kmeans++' |
-                                  # 'kmeans||')
+    init: str = "given"           # 'given' | 'sample' | 'kmeans++' |
+                                  # 'kmeans||': seeding, resolved at the
+                                  # entry points (kmeans, ipkmeans)
 
 
 class KMeansResult(NamedTuple):
@@ -41,11 +46,10 @@ class KMeansResult(NamedTuple):
 
 
 def check_params(params: KMeansParams) -> None:
-    """Raise for what this slice of the port does not cover."""
-    if params.init != "given":
-        raise NotImplementedError(
-            f"init={params.init!r}: seeding (core/init.py) comes in a later "
-            f"slice of the port; pass init='given' with init_centroids")
+    """Raise for a value the port does not know or does not cover yet."""
+    if params.init not in INIT_METHODS:
+        raise ValueError(f"unknown init: {params.init!r} "
+                         f"(expected one of {INIT_METHODS})")
     engines.check_prune(params.prune)
     engines.get_engine(params.backend)
 
@@ -56,20 +60,44 @@ def _asse(total_sse: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
                        torch.inf)
 
 
-def kmeans(points, init_centroids, mask=None,
-           params: KMeansParams = KMeansParams(), *,
+def _init_backend(backend: str) -> str:
+    """Which k-means|| implementation a Lloyd backend implies: the eager
+    engine the plain oracles, every kernel engine the kernels."""
+    return "plain" if backend == "eager" else "kernel"
+
+
+def kmeans(points, init_centroids=None, mask=None,
+           params: KMeansParams = KMeansParams(), *, k: int | None = None,
+           draws=None, generator: torch.Generator | None = None,
            device=None) -> KMeansResult:
     """Run Lloyd's algorithm to convergence on one subset.
 
     ``points (n, d)``, ``init_centroids (k, d)``, optional ``mask (n,)``
     (False rows are padding and ignored).  Runs on ``device`` (default:
     CUDA, raising without a card).
+
+    With ``params.init`` other than ``"given"`` the seeds are drawn here,
+    with the mask as weights: ``init_centroids`` may then be ``None``, ``k``
+    is the cluster count (default: ``init_centroids.shape[0]``), and the
+    draws are ``draws`` or come from ``generator`` (``core/init.py``).
     """
     check_params(params)
     dev = resolve_device(device)
     x = as_f32(points, dev)
-    c0 = as_f32(init_centroids, dev)
     w = None if mask is None else as_f32(mask, dev)
+    if params.init != "given":
+        kk = k if k is not None else (
+            None if init_centroids is None else init_centroids.shape[0])
+        if kk is None:
+            raise ValueError(f"params.init={params.init!r} needs k= (or "
+                             f"init_centroids to take the count from)")
+        c0 = resolve_init(x, int(kk), params.init, weights=w,
+                          backend=_init_backend(params.backend), draws=draws,
+                          generator=generator)
+    elif init_centroids is None:
+        raise ValueError('init="given" needs init_centroids')
+    else:
+        c0 = as_f32(init_centroids, dev)
     engine = engines.get_engine(params.backend)
     final_c, total, iters, conv = engine.solve(
         x, c0, w, max_iters=params.max_iters, tol=params.tol,
@@ -85,9 +113,14 @@ def kmeans_batched(subsets, masks, init_centroids,
     the same ``(k, d)`` seeds for every subset, as in the paper.
 
     Empty (all-padding) subsets keep the reference's contract: ASSE = +inf,
-    so they never win the min-ASSE merge.
+    so they never win the min-ASSE merge.  Seeding is the entry points'
+    (``kmeans``, ``ipkmeans``): ``params.init`` must be ``"given"``.
     """
     check_params(params)
+    if params.init != "given":
+        raise ValueError(f"kmeans_batched requires init='given' (got "
+                         f"{params.init!r}): resolve the seeds at the entry "
+                         f"point (kmeans / ipkmeans)")
     dev = resolve_device(device)
     x = as_f32(subsets, dev)
     c0 = as_f32(init_centroids, dev)

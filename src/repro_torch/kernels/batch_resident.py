@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.fused import _PLAIN_SCORE_ELEMS, _SMEM_PER_BLOCK
+from repro_torch.kernels.fused import _SMEM_PER_BLOCK
 from repro_torch.kernels.resident import bound_block_rows, check_prune
 
 # Kernel launches since the last reset; only the CUDA path counts.
@@ -168,7 +168,7 @@ def lloyd_solve_plain(subsets, centroids, weights=None, *,
          else weights.float())
     skips = torch.zeros((max(int(max_iters), 1), 2), dtype=torch.int32,
                         device=x.device)
-    step = max(1, _PLAIN_SCORE_ELEMS // max(1, s * k))
+    step = max(1, ref.PLAIN_SCORE_ELEMS // max(1, s * k))
     parts = [_solve_plain_chunk(x[lo:lo + step], c0, w[lo:lo + step],
                                 max_iters=max_iters, tol=tol,
                                 reseed_empty=reseed_empty, bb=bb, nb=nb,

@@ -38,8 +38,9 @@
 //     the 256 bytes a point the product reads at d = 64).
 //   * no padding of d, S or k: every ragged edge is masked in the kernels.
 //   * the scoring and the reduction are device functions in lloyd_device.cuh,
-//     shared with the whole-solve kernel (lloyd_solve.cu), so that a lane of
-//     that kernel picks the same labels and sums as this pass.
+//     shared with the whole-solve kernel (lloyd_solve.cu) and the assign and
+//     centroid-update kernels (sweeps.cu), so that a lane of those kernels
+//     picks the same labels and sums as this pass.
 //
 // Plain C interface, loaded with ctypes: `fused_lloyd` returns the first
 // non-zero cudaGetLastError() after a launch, 0 on success.
@@ -55,16 +56,17 @@ using lloyd::BM;
 using lloyd::NT;
 constexpr int ACC_THREADS = 1024;
 
-__global__ void centroid_norms_kernel(const float* __restrict__ c,
-                                      const int* __restrict__ lanes,
-                                      int k, int d, float* __restrict__ cn) {
+constexpr int NORM_THREADS = 256;
+
+__global__ void __launch_bounds__(NORM_THREADS)
+centroid_norms_kernel(const float* __restrict__ c,
+                      const int* __restrict__ lanes, int k, int d,
+                      float* __restrict__ cn) {
   const int g = blockIdx.y;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= k) return;
-  const float* cr = c + ((long long)lanes[g] * k + j) * d;
-  float s = 0.f;
-  for (int t = 0; t < d; ++t) s = fmaf(cr[t], cr[t], s);
-  cn[(long long)g * k + j] = s;
+  const int j0 = blockIdx.x * NORM_THREADS;
+  lloyd::centroid_norms<NORM_THREADS>(
+      c + ((long long)lanes[g] * k + j0) * d, min(NORM_THREADS, k - j0), d,
+      cn + (long long)g * k + j0);
 }
 
 __global__ void __launch_bounds__(NT, 2)
@@ -92,15 +94,11 @@ accumulate_kernel(const float* __restrict__ x, const float* __restrict__ w,
   extern __shared__ int smem[];
   __shared__ float red[ACC_THREADS];
   const int g = blockIdx.x;
-  const long long lane = lanes[g];
-  const float* wl = w + lane * S;
   const float total = lloyd::block_weighted_sum<ACC_THREADS>(
-      wl, mind + (long long)g * S, S, red);
+      w + (long long)lanes[g] * S, mind + (long long)g * S, S, red);
   if (threadIdx.x == 0) sse[g] = total;
-  lloyd::segment_sums<ACC_THREADS>(
-      x + lane * S * (long long)d, wl, labels + (long long)g * S, S, d, k,
-      order + (long long)g * S, smem, smem + k + 1,
-      sums + (long long)g * k * d, counts + (long long)g * k);
+  lloyd::lane_segment_sums<ACC_THREADS>(x, w, lanes, labels, S, d, k, order,
+                                        smem, sums, counts);
 }
 
 }  // namespace
@@ -112,8 +110,8 @@ extern "C" int fused_lloyd(const float* x, const float* c, const float* w,
                            int assign_only, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;
-  centroid_norms_kernel<<<dim3((k + 255) / 256, L), 256, 0, stream>>>(
-      c, lanes, k, d, cn);
+  centroid_norms_kernel<<<dim3((k + NORM_THREADS - 1) / NORM_THREADS, L),
+                          NORM_THREADS, 0, stream>>>(c, lanes, k, d, cn);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   assign_kernel<<<dim3((S + BM - 1) / BM, L), NT, 0, stream>>>(
       x, c, cn, lanes, S, d, k, labels, mind);

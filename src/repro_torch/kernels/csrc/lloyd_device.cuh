@@ -1,5 +1,6 @@
-// Device code shared by the fused Lloyd pass (fused_lloyd.cu) and the
-// whole-solve kernel (lloyd_solve.cu), so that both pick the same labels
+// Device code shared by the fused Lloyd pass (fused_lloyd.cu), the
+// whole-solve kernel (lloyd_solve.cu) and the assign, centroid-update and
+// init-sweep kernels (sweeps.cu), so that all of them pick the same labels
 // and the same per-cluster sums bit for bit.
 //
 //   * score_tile: one 128-point tile of a lane scored against all k
@@ -9,7 +10,11 @@
 //     prune="bounds").
 //   * segment_sums: the weighted per-cluster sums and counts of a lane from
 //     its labels, by a stable counting sort and one warp per cluster
-//     summing its points in increasing point order (no float atomics).
+//     summing its points in increasing point order (no float atomics); a
+//     label outside [0, k) contributes nothing.  lane_segment_sums is the
+//     same as the body of a kernel with one block per listed lane, shared
+//     by the fused pass's accumulate kernel and the centroid-update kernel
+//     (sweeps.cu).
 //   * block_weighted_sum: the lane's SSE as a fixed-shape tree.
 //
 // Arrays that the whole-solve kernel writes while it runs (centroids,
@@ -221,8 +226,12 @@ __device__ void segment_sums(const float* __restrict__ xl,
   for (int j = tid; j < k; j += NTH) cursor[j] = 0;
   __syncthreads();
 
-  // integer histogram of labels (exact in any order)
-  for (int i = tid; i < S; i += NTH) atomicAdd(&cursor[lab[i]], 1);
+  // integer histogram of labels (exact in any order); a label outside
+  // [0, k) is counted nowhere, so its point is left out of the sort
+  for (int i = tid; i < S; i += NTH) {
+    const int l = lab[i];
+    if ((unsigned)l < (unsigned)k) atomicAdd(&cursor[l], 1);
+  }
   __syncthreads();
 
   // exclusive scan of the histogram by warp 0: contiguous chunks per lane
@@ -252,8 +261,9 @@ __device__ void segment_sums(const float* __restrict__ xl,
   if (wid == 0) {
     for (int base = 0; base < S; base += 32) {
       const int i = base + lid;
-      const bool valid = i < S;
-      const int l = valid ? lab[i] : -1;
+      const int raw = i < S ? lab[i] : -1;
+      const bool valid = (unsigned)raw < (unsigned)k;
+      const int l = valid ? raw : -1;
       const unsigned peers = __match_any_sync(0xffffffffu, l);
       const int rank = __popc(peers & ((1u << lid) - 1u));
       const int first = __ffs(peers) - 1;
@@ -287,6 +297,25 @@ __device__ void segment_sums(const float* __restrict__ xl,
     if (lid == 0) counts[j] = cnt;
   }
   __syncthreads();
+}
+
+// segment_sums as the body of a kernel with one block per listed lane:
+// block g sums lane lanes[g] of x (M,S,d) and w (M,S) by row g of labels
+// (L,S) into row g of sums (L,k,d) and counts (L,k).  order is an (L,S) int
+// workspace; smem holds 2k + 1 ints of dynamic shared memory.
+template <int NTH>
+__device__ void lane_segment_sums(const float* __restrict__ x,
+                                  const float* __restrict__ w,
+                                  const int* __restrict__ lanes,
+                                  const int* __restrict__ labels, int S,
+                                  int d, int k, int* __restrict__ order,
+                                  int* smem, float* __restrict__ sums,
+                                  float* __restrict__ counts) {
+  const long long g = blockIdx.x;
+  const long long lane = lanes[g];
+  segment_sums<NTH>(x + lane * S * (long long)d, w + lane * S, labels + g * S,
+                    S, d, k, order + g * S, smem, smem + k + 1,
+                    sums + g * k * (long long)d, counts + g * k);
 }
 
 }  // namespace lloyd

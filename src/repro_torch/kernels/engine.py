@@ -17,10 +17,13 @@ written out, so every engine method takes a stack, ``points (M,S,d)``,
   * ``solve(points, init, weights, ...)`` — one subset, a stack of one.
 
 Engines registered: ``eager`` (the reference's ``jnp`` role: plain PyTorch
-oracles), ``fused`` (the hand-written fused kernel, one launch per Lloyd
-trip), ``resident`` (the whole-solve kernel, one launch per subset) and
-``batched`` (the whole-solve kernel, one launch per stack).  The reference's
-other engines raise ``NotImplementedError`` naming the slice that ports them.
+oracles), ``twopass`` (the reference's ``pallas`` role: the assign kernel,
+then the centroid-update kernel, two launches per Lloyd trip), ``fused``
+(the hand-written fused kernel, one launch per Lloyd trip), ``resident``
+(the whole-solve kernel, one launch per subset) and ``batched`` (the
+whole-solve kernel, one launch per stack).  ``tuned`` raises
+``NotImplementedError`` naming the slice that ports it, and the reference's
+``pallas`` names the port's ``twopass``.
 ``prune="bounds"`` is accepted everywhere: the whole-solve kernels skip
 score passes with it, and the per-step engines run their exact loop, which
 gives the same result.
@@ -34,13 +37,12 @@ from repro_torch.kernels.resident import check_prune
 
 _REGISTRY: dict[str, "LloydEngine"] = {}
 
-# engines of the reference that later slices of the port bring, by the
-# port's name (``jnp``/``pallas`` roles become ``eager``/``twopass``)
+# engine names of the reference the port does not register: why, by name
+# (the ``jnp``/``pallas`` roles are the port's ``eager``/``twopass``)
 LATER = {
-    "tuned": "a later slice (kernel tuning)",
-    "twopass": "a later slice (the assign and centroid-update kernels)",
-    "pallas": "a later slice (the assign and centroid-update kernels, as "
-              "the 'twopass' engine)",
+    "tuned": "is not ported yet: it comes in a later slice (kernel tuning)",
+    "pallas": "is the reference's name: the port's engine for that role is "
+              "'twopass' (convert.BACKEND_NAMES maps it)",
 }
 
 
@@ -51,8 +53,7 @@ def register(engine: "LloydEngine") -> "LloydEngine":
 
 def get_engine(name: str) -> "LloydEngine":
     if name in LATER:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported yet: it comes in {LATER[name]}")
+        raise NotImplementedError(f"backend {name!r} {LATER[name]}")
     if name not in _REGISTRY:
         raise ValueError(f"unknown backend: {name!r} "
                          f"(expected one of {tuple(_REGISTRY)})")
@@ -197,6 +198,32 @@ class EagerEngine(LloydEngine):
         return ref.assign_ref(points[sel], centroids[sel])
 
 
+class TwoPassEngine(LloydEngine):
+    """The assign kernel, then the centroid-update kernel on its labels (the
+    reference's ``pallas`` engine): the points are read twice per trip, with
+    an (L, S) label and distance round trip between the launches; use it
+    when the per-point labels are the product.  Its labels and sums are the
+    fused pass's bit for bit; only the SSE is summed otherwise."""
+
+    name = "twopass"
+
+    def step(self, points, centroids, weights=None, lanes=None):
+        from repro_torch.kernels import ops
+        lanes = _all_lanes(points, lanes)
+        if weights is None:
+            weights = torch.ones(points.shape[:2], dtype=torch.float32,
+                                 device=points.device)
+        labels, mind = ops.assign(points, centroids, lanes=lanes)
+        sums, counts = ops.centroid_update(points, labels, weights,
+                                           centroids.shape[1], lanes=lanes)
+        sse = torch.sum(weights[lanes.long()] * mind, dim=1)
+        return sums, counts, sse
+
+    def assign(self, points, centroids, lanes=None):
+        from repro_torch.kernels import ops
+        return ops.assign(points, centroids, lanes=lanes)
+
+
 class FusedEngine(LloydEngine):
     """The fused kernel: one pass over the points per iteration, one launch
     per iteration for the whole stack."""
@@ -263,6 +290,7 @@ class BatchedEngine(ResidentEngine):
 
 
 register(EagerEngine())
+register(TwoPassEngine())
 register(FusedEngine())
 register(ResidentEngine())
 register(BatchedEngine())

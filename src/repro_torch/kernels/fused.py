@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.ref import PLAIN_SCORE_ELEMS
+
 # Kernel launches since the last reset; only the CUDA path counts.
 launches = 0
 
@@ -28,8 +30,6 @@ SOURCE = "fused_lloyd.cu"
 # fixed share of it (its 1024-float reduction buffer)
 _SMEM_PER_BLOCK = 232448
 _SMEM_FIXED = 1024 * 4
-# lanes per chunk of the plain version: bounds its (lanes, S, k) scores
-_PLAIN_SCORE_ELEMS = 1 << 26
 
 
 class StepOut(NamedTuple):
@@ -43,7 +43,7 @@ class AssignOut(NamedTuple):
     mind: torch.Tensor        # (L, S) f32
 
 
-def _check(x, c, w, lanes, assign_only):
+def _check(x, c, w, lanes, assign_only, what="the fused pass"):
     if x.dim() != 3 or c.dim() != 3:
         raise ValueError(f"expected x (M,S,d) and c (M,k,d), got "
                          f"{tuple(x.shape)} and {tuple(c.shape)}")
@@ -63,8 +63,8 @@ def _check(x, c, w, lanes, assign_only):
         raise ValueError("points, centroids, weights and lanes must share "
                          "one device")
     if any(t.dtype != torch.float32 for t in tensors[:-1]):
-        raise TypeError("the fused pass takes float32 points, centroids and "
-                        "weights")
+        raise TypeError(f"{what} takes float32 points, centroids and "
+                        f"weights")
     if lanes.dim() != 1 or lanes.dtype != torch.int32:
         raise TypeError("lanes must be a 1-D int32 tensor")
 
@@ -78,7 +78,7 @@ def fused_lloyd_plain(x, c, w=None, lanes=None, *, assign_only=False):
         lanes = torch.arange(m, dtype=torch.int32, device=x.device)
     if w is None and not assign_only:
         w = torch.ones((m, s), dtype=torch.float32, device=x.device)
-    step = max(1, _PLAIN_SCORE_ELEMS // max(1, s * k))
+    step = max(1, PLAIN_SCORE_ELEMS // max(1, s * k))
     outs = []
     for lo in range(0, lanes.numel(), step):
         sel = lanes[lo:lo + step].long()

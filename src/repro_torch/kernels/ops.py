@@ -6,18 +6,25 @@ centroids as in the reference, or a stack, ``(M,S,d)`` with ``(M,k,d)`` and
 optional ``lanes`` (``kernels/fused.py``).  The whole-solve wrappers take
 one subset (``lloyd_solve_resident``, ``kernels/resident.py``) or a stack
 with shared ``(k,d)`` seeds (``lloyd_solve_batched``,
-``kernels/batch_resident.py``).  All run the CUDA kernel on CUDA tensors
-and its plain version on CPU tensors.
+``kernels/batch_resident.py``).  ``assign`` and ``centroid_update`` (the
+``twopass`` engine's two kernels) take one subset or a stack with ``lanes``;
+``init_sweep`` runs one k-means|| round (``kernels/init.py``).  All run the
+CUDA kernel on CUDA tensors and its plain version on CPU tensors.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import fused, ref
+from repro_torch.kernels.assign import assign
 from repro_torch.kernels.batch_resident import lloyd_solve_batched
+from repro_torch.kernels.centroid_update import centroid_update
+from repro_torch.kernels.init import init_sweep
 from repro_torch.kernels.resident import lloyd_solve_resident
 
-__all__ = ["lloyd_step_fused", "lloyd_assign_fused", "lloyd_solve_resident",
+__all__ = ["assign", "centroid_update", "init_sweep", "lloyd_step_fused",
+           "lloyd_assign_fused", "lloyd_solve_resident",
            "lloyd_solve_batched", "assign_ref", "centroid_update_ref",
-           "lloyd_step_ref", "lloyd_solve_ref", "lloyd_solve_bounds_ref"]
+           "init_sweep_ref", "lloyd_step_ref", "lloyd_solve_ref",
+           "lloyd_solve_bounds_ref"]
 
 
 def lloyd_step_fused(points, centroids, weights=None, *, lanes=None):
@@ -46,6 +53,7 @@ def lloyd_assign_fused(points, centroids, *, lanes=None):
 # the oracles, so callers can switch implementations uniformly
 assign_ref = ref.assign_ref
 centroid_update_ref = ref.centroid_update_ref
+init_sweep_ref = ref.init_sweep_ref
 lloyd_step_ref = ref.lloyd_step_ref
 lloyd_solve_ref = ref.lloyd_solve_ref
 lloyd_solve_bounds_ref = ref.lloyd_solve_bounds_ref

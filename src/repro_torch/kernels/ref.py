@@ -8,6 +8,11 @@ from __future__ import annotations
 
 import torch
 
+# elements of one score block of a plain version: larger inputs go in
+# chunks, of rows (``by_row_chunks``) or of lanes (the kernels' plain
+# versions)
+PLAIN_SCORE_ELEMS = 1 << 26
+
 
 def divide_or_keep(sums: torch.Tensor, counts: torch.Tensor,
                    old_centroids: torch.Tensor) -> torch.Tensor:
@@ -52,10 +57,29 @@ def reseed_farthest(points: torch.Tensor, score: torch.Tensor,
     return take, picks
 
 
+def by_row_chunks(fn, points: torch.Tensor, k: int, *args) -> tuple:
+    """``fn(points, *args)`` over row chunks of ``points (..., n, d)``, each
+    small enough that its ``(..., rows, k)`` scores stay within
+    PLAIN_SCORE_ELEMS; ``fn`` returns a tuple of ``(..., rows)`` tensors,
+    joined here along the rows."""
+    rows = max(1, PLAIN_SCORE_ELEMS // max(1, points.shape[:-2].numel() * k))
+    if points.shape[-2] <= rows:
+        return tuple(fn(points, *args))
+    parts = [fn(points[..., lo:lo + rows, :], *args)
+             for lo in range(0, points.shape[-2], rows)]
+    return tuple(torch.cat(t, dim=-1) for t in zip(*parts))
+
+
 def assign_ref(points: torch.Tensor, centroids: torch.Tensor):
     """Nearest-centroid assignment: (n,d),(k,d) -> labels (n,) i32, min sq
     distances (n,) f32.  Ties break to the lowest index (``torch.argmin``
-    returns the first minimum)."""
+    returns the first minimum).  Large inputs go in row chunks, so that the
+    (n, k) distances never exist at once."""
+    return by_row_chunks(_assign_block, points, centroids.shape[-2],
+                         centroids)
+
+
+def _assign_block(points: torch.Tensor, centroids: torch.Tensor):
     x = points.float()
     c = centroids.float()
     x2 = torch.sum(x * x, dim=-1, keepdim=True)
@@ -69,11 +93,48 @@ def assign_ref(points: torch.Tensor, centroids: torch.Tensor):
 def centroid_update_ref(points: torch.Tensor, labels: torch.Tensor,
                         weights: torch.Tensor, k: int):
     """Weighted per-cluster sums and counts: -> sums (k,d) f32, counts (k,)
-    f32, as the reference's one-hot product."""
-    onehot = torch.nn.functional.one_hot(labels.long(), k).float()
+    f32, as the reference's one-hot product.  A label outside ``[0, k)``
+    has an all-zero one-hot row, as in ``jax.nn.one_hot``, so its point
+    contributes nothing."""
+    col = torch.arange(k, device=labels.device)
+    onehot = (labels.long().unsqueeze(-1) == col).float()
     onehot = onehot * weights.float().unsqueeze(-1)
     sums = onehot.transpose(-1, -2) @ points.float()
     return sums, torch.sum(onehot, dim=-2)
+
+
+def init_sweep_ref(points: torch.Tensor, cands: torch.Tensor,
+                   old_mind: torch.Tensor, uniforms: torch.Tensor, psi_prev,
+                   *, ell: float, cand_valid: torch.Tensor | None = None,
+                   weights: torch.Tensor | None = None):
+    """One k-means|| round sweep: (n,d),(c,d),(n,),(n,),() -> (new_mind (n,)
+    f32, sampled (n,) bool, psi () f32).
+
+    The reference's expressions in its order: ``||c||^2 - 2 x.c`` minimised
+    over the candidates (invalid ones carry +inf norms and never win; with
+    none the minimum is +inf), ``||x||^2`` added back and clamped at 0,
+    folded into ``old_mind``; the draw ``u * psi_prev < ell * new_mind``
+    gated on positive weight and positive ``psi_prev``; ``psi = sum(w *
+    new_mind)``.  The scores are taken in row chunks so that the ``(n, c)``
+    block never exists at once.
+    """
+    x = points.float()
+    c = cands.float()
+    n = x.shape[0]
+    norms = torch.sum(c * c, dim=-1)
+    if cand_valid is not None:
+        norms = torch.where(cand_valid, norms, torch.inf)
+    best = torch.full((n,), torch.inf, dtype=torch.float32, device=x.device)
+    if n and c.shape[0]:
+        best, = by_row_chunks(
+            lambda xs: (torch.amin(norms - 2.0 * (xs @ c.T), dim=-1),), x,
+            c.shape[0])
+    cand_min = torch.clamp(best + torch.sum(x * x, dim=-1), min=0.0)
+    mind = torch.minimum(old_mind.float(), cand_min)
+    w = _as_weights(x, weights)
+    pp = torch.as_tensor(psi_prev, dtype=torch.float32, device=x.device)
+    take = (uniforms.float() * pp < ell * mind) & (w > 0.0) & (pp > 0.0)
+    return mind, take, torch.sum(w * mind)
 
 
 def _as_weights(points: torch.Tensor, weights: torch.Tensor | None):

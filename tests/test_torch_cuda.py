@@ -1,7 +1,9 @@
-"""The port's CUDA kernels on the card: the fused pass and the whole-solve
-kernel against their plain versions, and the whole-solve kernel's bitwise
-contracts (bounds == exact, one batched launch == one resident launch per
-lane).  Marked ``cuda``; skips without a card.
+"""The port's CUDA kernels on the card: the fused pass, the whole-solve
+kernel, and the assign, centroid-update and init-sweep kernels against their
+plain versions; the whole-solve kernel's bitwise contracts (bounds == exact,
+one batched launch == one resident launch per lane); the two-pass step's
+sums bit for bit the fused pass's; repeat launches bit-identical.  Marked
+``cuda``; skips without a card.
 Run on a machine with one (no JAX needed, so without the JAX conftest):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -12,7 +14,8 @@ import torch
 
 from repro_torch.core.ipkmeans import IPKMeansConfig, ipkmeans
 from repro_torch.core.kmeans import KMeansParams
-from repro_torch.kernels import batch_resident, fused, resident
+from repro_torch.kernels import (assign, batch_resident, centroid_update,
+                                 engine, fused, init, resident)
 
 pytestmark = pytest.mark.cuda
 
@@ -159,3 +162,98 @@ def test_solve_counts_only_launches(card):
     resident.lloyd_solve_resident(x[0], c, w[0], **KW)
     assert (batch_resident.launches, resident.launches) == (
         before[0], before[1] + 1)
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_assign_kernel_matches_plain_version_and_fused(card):
+    x, c, _ = _ragged(card, seed=2)
+    lanes = torch.tensor([2, 0], dtype=torch.int32, device=card)
+    before = assign.launches
+    got = assign.assign(x, c, lanes)
+    assert assign.launches == before + 1
+    want = fused.fused_lloyd_plain(x, c, lanes=lanes, assign_only=True)
+    assert torch.equal(got.labels, want.labels)          # no near-ties
+    assert not bool((got.labels == 7).any())             # 3 wins the tie
+    torch.testing.assert_close(got.mind, want.mind, rtol=1e-5, atol=1e-3)
+    # the fused pass's scoring code: the same bits, and a repeat too
+    assert _same(got, fused.fused_lloyd(x, c, lanes=lanes, assign_only=True))
+    assert _same(got, assign.assign(x, c, lanes))
+    one = assign.assign(x[1], c[1])                      # one subset
+    assert torch.equal(one.labels, fused.fused_lloyd(
+        x[1:2], c[1:2], assign_only=True).labels[0])
+
+
+def test_centroid_update_kernel_matches_plain_version_and_fused(card):
+    x, c, w = _ragged(card, seed=3)
+    k = c.shape[1]
+    lab = fused.fused_lloyd(x, c, assign_only=True).labels
+    before = centroid_update.launches
+    sums, counts = centroid_update.centroid_update(x, lab, w, k)
+    assert centroid_update.launches == before + 1
+    # the fused pass's sums on the same labels, bit for bit
+    step = fused.fused_lloyd(x, c, w)
+    assert torch.equal(sums, step.sums) and torch.equal(counts, step.counts)
+    # labels outside [0, k) contribute nothing
+    bad = lab.clone()
+    bad[:, :50] = -1
+    bad[:, 50:90] = k
+    got = centroid_update.centroid_update(x, bad, w, k)
+    want = centroid_update.centroid_update_plain(
+        x, bad, w, k, torch.arange(3, dtype=torch.int32, device=card))
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    assert _same(got, centroid_update.centroid_update(x, bad, w, k))
+    assert float(got[1].sum()) == float(w[:, 90:].sum())
+
+
+@pytest.mark.parametrize("case", ["draw", "round0", "no_candidates",
+                                  "padding"])
+def test_init_sweep_kernel_matches_plain_version(card, case):
+    g = torch.Generator().manual_seed(4)
+    n, d, nc = 1000, 17, 37
+    x = (torch.randn((n, d), generator=g) * 3.0).to(card)
+    cands = (torch.randn((nc, d), generator=g) * 3.0).to(card)
+    old = (torch.rand(n, generator=g) * 300 + 100).to(card)
+    u = torch.rand(n, generator=g).to(card)
+    w = (torch.rand(n, generator=g) > 0.3).float().to(card)
+    pp = torch.sum(w * old)
+    ell, valid = 40.0, None
+    if case == "round0":
+        old.fill_(torch.inf)
+        pp = 0.0
+    elif case == "no_candidates":
+        cands = cands[:0]
+    elif case == "padding":
+        valid = torch.arange(nc, device=card) < 30
+    before = init.launches
+    got = init.init_sweep(x, cands, old, u, pp, ell=ell, weights=w,
+                          cand_valid=valid)
+    assert init.launches == before + 1
+    want = init.init_sweep(x.cpu(), cands.cpu(), old.cpu(), u.cpu(),
+                           torch.as_tensor(pp).cpu(), ell=ell,
+                           weights=w.cpu(),
+                           cand_valid=None if valid is None else valid.cpu())
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-3)
+    assert torch.equal(got[1].cpu(), want[1])            # no draw near 0
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-5, atol=0.0)
+    assert _same(got, init.init_sweep(x, cands, old, u, pp, ell=ell,
+                                      weights=w, cand_valid=valid))
+    if case == "round0":
+        assert not bool(got[1].any())
+    if case == "no_candidates":
+        assert torch.equal(got[0], old) and bool(got[1].any())
+    if case == "padding":
+        assert _same(got, init.init_sweep(x, cands[:30].contiguous(), old, u,
+                                          pp, ell=ell, weights=w))
+
+
+def test_twopass_step_sums_are_fused_bit_for_bit(card):
+    x, c, w = _ragged(card, seed=5)
+    lanes = torch.tensor([1, 2], dtype=torch.int32, device=card)
+    two = engine.get_engine("twopass").step(x, c, w, lanes)
+    one = engine.get_engine("fused").step(x, c, w, lanes)
+    assert torch.equal(two[0], one[0]) and torch.equal(two[1], one[1])
+    torch.testing.assert_close(two[2], one[2], rtol=1e-5, atol=0.0)

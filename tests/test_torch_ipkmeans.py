@@ -98,8 +98,6 @@ def test_eager_backend_matches_reference_jnp():
     (dict(pack="a2a"), "pack"),
     (dict(merge="hierarchical"), "hierarchical"),
     (dict(kmeans=JParams(backend="tuned")), "tuned"),
-    (dict(kmeans=JParams(backend="pallas")), "twopass"),
-    (dict(kmeans=JParams(init="kmeans||")), "init"),
 ])
 def test_unported_configs_raise(change, match):
     jcfg = dataclasses.replace(JConfig(num_clusters=4, num_subsets=2),
@@ -143,7 +141,10 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.core.ipkmeans, "
-            "repro_torch.convert, repro_torch.kernels.engine\n"
+            "repro_torch.core.init, repro_torch.convert, "
+            "repro_torch.kernels.engine, repro_torch.kernels.ops, "
+            "repro_torch.kernels.assign, repro_torch.kernels.centroid_update, "
+            "repro_torch.kernels.init\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
