@@ -9,24 +9,30 @@ PyTorch version, drives the IPKMeans main path (kd-tree S1 -> S2 with
 empty-cluster reseeding -> min-ASSE S3) at full size through
 ``repro_torch.core.ipkmeans.ipkmeans``, and checks the result.  Phases:
 
-  1. device and build: the card's name and power limit, the build times;
+  1. device and build: the card's name and power limit, the build times,
+     and each kernel's registers, shared memory and spills (ptxas);
   2. [lane], [ragged]: the fused pass against its plain version, both
      modes, at the main path's lane shape and on a ragged case; determinism
      on a repeat launch; its times (taken again over the whole stack in
      [stack], and those go into the report);
   3. [solve]: the whole-solve kernel against its plain version on two
-     stacks, reseed on and off, prune "none" and "bounds"; bounds
-     bit-identical to exact, one batched launch bit-identical to one
-     resident launch per lane, a repeat launch bit-identical;
+     stacks, reseed on and off, prune "none" and "bounds", at clusters of
+     R = 1, 2, 4, 8 blocks a lane (and 16 where the card takes it), every R
+     bit-identical to R = 1; bounds bit-identical to exact, one batched
+     launch bit-identical to one resident launch per lane, a repeat launch
+     bit-identical;
   4. [small]: the whole pipeline on a small input, card against CPU;
   5. [main]: the main path at full size (n = 2**23, d = 64, K = 1024,
      M = 512), on ``backend="fused"`` (the first slice's path) and on
      ``backend="batched"`` (the reference's main configuration) with
      prune "none" and "bounds", each with the launch counts reset just
-     before and read just after; the whole-solve kernel's times at the
-     whole stack and on an 8-lane slice against its plain version;
+     before and read just after; the cluster size R the rule picks; the
+     whole-solve kernel's times at the whole stack at each R (whole solves,
+     and one score pass with max_iters=0 of the stack and of a lone lane),
+     the whole solves of the stack's first 16 and 48 lanes at each R beside
+     the rule's pick, and an 8-lane slice against its plain version;
   6. [resident]: one full-width solve through ``kmeans(...,
-     backend="resident")``;
+     backend="resident")``, its R, beside the fused engine's solve;
   7. [assign] (run before [main]): the assign kernel against its plain
      version on one large ragged lane (n = 2**20, k = 4100) and a ragged
      8-lane stack with an exact tie and an empty cluster, bit for bit the
@@ -58,6 +64,7 @@ exits non-zero at once.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -108,6 +115,9 @@ SOLVE_RTOL = SOLVE_ATOL = 1e-4
 MAIN_SSE_RTOL = 1e-5
 # lanes of the main path's stack that the plain version is timed on
 PLAIN_LANES = 8
+# stacks between a lone lane and the whole (the first m lanes), on which
+# [main] holds the cluster rule's pick against every R
+MID_LANES = (16, 48)
 # [assign]'s large lane: the seeding's shape class (one lane, many points, a
 # k that is not a multiple of the tile); [init]'s candidates per sweep
 # (ell = 2K, the expected draws of one k-means|| round at K = 1024)
@@ -136,6 +146,49 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled symbol: the identifier after the
+    (anonymous) namespace, with <true>/<false> for a bool template flag."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    i = m.end() + int(m.group(1))
+    n = re.match(r"\d+", mangled[i:])
+    if not n:
+        return mangled
+    i += n.end()
+    ident = mangled[i:i + int(n.group(0))]
+    rest = mangled[i + int(n.group(0)):]
+    return ident + ("<true>" if rest.startswith("ILb1E") else
+                    "<false>" if rest.startswith("ILb0E") else "")
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel entry of an nvcc -Xptxas -v log: registers,
+    shared memory, spill stores and loads."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {m.group(2)} B "
+                       f"static smem, {spill}")
+            name, spill = None, ""
+        elif m is None and name and re.search(r"Used (\d+) registers", line):
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, 0 B static smem, {spill}")
+            name, spill = None, ""
+    return out
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -445,9 +498,19 @@ def solve_stacks(torch, dev):
             ("ragged5", xr, cr.contiguous(), wr)]
 
 
+def cluster_sizes(x, k: int, prune: str) -> list[int]:
+    """The cluster sizes to hold against R = 1: 1, 2, 4, 8, and 16 where
+    the card takes it."""
+    from repro_torch.kernels import batch_resident as br
+    plan = br.cluster_plan(x.shape[0], x.shape[1], k, prune,
+                           device=x.device)
+    return [r for r, n in plan.fits.items() if n >= 1]
+
+
 def phase_solve(torch, solve_report: dict) -> bool:
     """The whole-solve kernel against its plain version, and its bitwise
-    contracts: bounds == exact, batched == resident per lane, repeat."""
+    contracts: every cluster size == R = 1, bounds == exact, batched ==
+    resident per lane, repeat."""
     from repro_torch.kernels import batch_resident as br
     from repro_torch.kernels import resident
     dev = torch.device("cuda")
@@ -464,6 +527,12 @@ def phase_solve(torch, solve_report: dict) -> bool:
                 torch.cuda.synchronize()
                 ok, err = compare_solve(name, got, plain, torch)
                 worst = max(worst, err)
+                rs = cluster_sizes(x, c.shape[0], prune)
+                one = solve_batched(x, c, w, cluster=1, **kw)
+                across = {r: identical(solve_batched(x, c, w, cluster=r,
+                                                     **kw), one)
+                          for r in rs}
+                across["rule"] = identical(got, one)
                 again = solve_batched(x, c, w, **kw)
                 lanes = [resident.lloyd_solve_resident(
                     x[i], c, w[i], **kw) for i in range(x.shape[0])]
@@ -476,13 +545,21 @@ def phase_solve(torch, solve_report: dict) -> bool:
                     ref_out = got
                 else:
                     vs_exact = identical(got[:4], ref_out[:4])
-                print(f"[solve] {name}: repeat bit-identical={rep}, batched "
+                rule_r = br.cluster_plan(x.shape[0], x.shape[1],
+                                         c.shape[0], prune, device=dev).r
+                print(f"[solve] {name}: R = 1 against R = "
+                      f"{[r for r in across if r != 1]} (the rule's R "
+                      f"{rule_r}) bit-identical: {all(across.values())}; "
+                      f"repeat bit-identical={rep}, batched "
                       f"== resident per lane={per_lane}, bounds == exact="
                       f"{vs_exact}, passes {got.passes.tolist()}, skipped "
                       f"{int(got.skips[:, 0].sum())}/"
                       f"{int(got.skips[:, 1].sum())} lane-blocks",
                       flush=True)
-                if not (ok and rep and per_lane and vs_exact):
+                if not (ok and rep and per_lane and vs_exact
+                        and all(across.values())):
+                    print(f"[solve] FAIL bit-identical across R: {across}",
+                          flush=True)
                     return False
     solve_report["max_abs_err"] = worst
     return True
@@ -672,6 +749,11 @@ def phase_main(torch, report: dict, solve_report: dict):
     # the whole-solve kernel at the whole stack: times, work, bound
     subsets, masks = st_b[3], st_b[4].float()
     kw = dict(max_iters=MAX_ITERS, tol=TOL, reseed_empty=True)
+    plan = br.cluster_plan(subsets.shape[0], subsets.shape[1], K, device=dev)
+    print(f"[main] cluster rule: R = {plan.r} blocks a lane for M = "
+          f"{subsets.shape[0]} lanes of {subsets.shape[1]} rows (clusters "
+          f"the card holds at once, by R: {plan.fits}; rows split in units "
+          f"of {plan.unit})", flush=True)
     ms = cuda_time_ms(lambda: solve_batched(subsets, init, masks, **kw),
                       reps=2, warmup=1)
     out = solve_batched(subsets, init, masks, **kw)
@@ -696,16 +778,62 @@ def phase_main(torch, report: dict, solve_report: dict):
           f"({skipped / max(live, 1):.4f}), bound {bound_b:.4f} ms; the fused"
           f" engine's S2 on the same stack {fused_s2_ms:.4f} ms", flush=True)
 
-    # one score pass per lane and nothing else (max_iters=0): the per-pass
-    # rate with every lane resident on the card, and with one lane on one SM
-    one_pass = cuda_time_ms(lambda: solve_batched(subsets, init, masks,
-                                                  max_iters=0), reps=3,
-                            warmup=1)
-    lane_pass = cuda_time_ms(lambda: solve_batched(
-        subsets[:1].contiguous(), init, masks[:1].contiguous(),
-        max_iters=0), reps=3, warmup=1)
-    print(f"[main] one score pass (max_iters=0): whole stack {one_pass:.4f} "
-          f"ms, one lane alone {lane_pass:.4f} ms", flush=True)
+    # at every cluster size: the whole solve (bit-identical to the rule's
+    # R), and one score pass per lane and nothing else (max_iters=0), of the
+    # whole stack and of one lane alone
+    x1, w1 = subsets[:1].contiguous(), masks[:1].contiguous()
+    flop_pass = 2.0 * K * d_ * s_
+    by_r = {}
+    for r in cluster_sizes(subsets, K, "none"):
+        whole = cuda_time_ms(lambda: solve_batched(
+            subsets, init, masks, cluster=r, **kw), reps=2, warmup=1)
+        same = identical(solve_batched(subsets, init, masks, cluster=r, **kw),
+                         out)
+        stack_pass = cuda_time_ms(lambda: solve_batched(
+            subsets, init, masks, cluster=r, max_iters=0), reps=3, warmup=1)
+        lane_pass = cuda_time_ms(lambda: solve_batched(
+            x1, init, w1, cluster=r, max_iters=0), reps=3, warmup=1)
+        fit = br.cluster_plan(m_, s_, K, device=dev, cluster=r).clusters
+        by_r[r] = dict(whole_ms=whole, stack_pass_ms=stack_pass,
+                       lane_pass_ms=lane_pass, clusters_at_once=fit)
+        print(f"[main] R = {r} ({fit} clusters at once on the card): "
+              f"whole solve {whole:.4f} ms "
+              f"({flop_pass * passes / (whole * 1e-3) / 1e12:.2f} TFLOP/s, "
+              f"{bound / whole:.1%} of the bound), bit-identical to the "
+              f"rule's R: {same}; one score pass (max_iters=0) of the stack "
+              f"{stack_pass:.4f} ms ({flop_pass * m_ / (stack_pass * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s), of one lane alone {lane_pass:.4f} ms "
+              f"({flop_pass / (lane_pass * 1e-3) / 1e12:.3f} TFLOP/s)",
+              flush=True)
+        if not same:
+            print(f"[main] FAIL R = {r} differs from the rule's R",
+                  flush=True)
+            return None
+    one_pass = by_r[plan.r]["stack_pass_ms"]
+    lane_pass = min(v["lane_pass_ms"] for v in by_r.values())
+
+    # stacks between a lone lane and the whole: the first m lanes, whole
+    # solves at every R, bit-identical to the rule's R
+    by_lanes = {}
+    for m in MID_LANES:
+        xm, wm = subsets[:m].contiguous(), masks[:m].contiguous()
+        rule_r = br.cluster_plan(m, s_, K, device=dev).r
+        want = solve_batched(xm, init, wm, **kw)
+        times = {}
+        for r in cluster_sizes(xm, K, "none"):
+            times[r] = cuda_time_ms(lambda: solve_batched(
+                xm, init, wm, cluster=r, **kw), reps=2, warmup=1)
+            if not identical(solve_batched(xm, init, wm, cluster=r, **kw),
+                             want):
+                print(f"[main] FAIL {m} lanes: R = {r} differs from the "
+                      f"rule's R", flush=True)
+                return None
+        by_lanes[m] = dict(rule_r=rule_r, whole_ms=times,
+                           passes=int(want.passes.sum()))
+        print(f"[main] the first {m} lanes ({int(want.passes.sum())} score "
+              f"passes): the rule picks R = {rule_r}; whole solve "
+              + ", ".join(f"R = {r} {t:.4f} ms" for r, t in times.items())
+              + "; every R bit-identical", flush=True)
 
     # an 8-lane slice: kernel against its plain version, and their times
     xs, ws = subsets[:PLAIN_LANES].contiguous(), masks[:PLAIN_LANES]
@@ -730,7 +858,8 @@ def phase_main(torch, report: dict, solve_report: dict):
                         plain_lanes=PLAIN_LANES, ms_plain_lanes=ms8,
                         bound_ms_plain_lanes=bound8,
                         fused_s2_ms=fused_s2_ms, one_pass_ms=one_pass,
-                        one_lane_pass_ms=lane_pass)
+                        one_lane_pass_ms=lane_pass, cluster_r=plan.r,
+                        by_cluster=by_r, by_lanes=by_lanes)
     if not ok:
         return None
 
@@ -775,22 +904,41 @@ def phase_resident(torch, report: dict, main: dict) -> bool:
     s_, d_ = x0.shape
     bound, by = solve_bound_ms(s_, d_, K, 1, int(got.passes.sum()), 0,
                                MAX_ITERS)
+    # the same solve at every cluster size, bit-identical to the rule's
+    plan = br.cluster_plan(1, s_, K, device=x0.device)
+    by_r = {}
+    for r in cluster_sizes(x0[None], K, "none"):
+        by_r[r] = cuda_time_ms(lambda: resident_out(x0, init, w0, cluster=r,
+                                                    **kw), reps=3, warmup=1)
+        ok = ok and identical(resident_out(x0, init, w0, cluster=r, **kw),
+                              got)
     # the same solve on the fused engine (one launch per trip), beside it
+    # (host clock, a host loop: the median of 5 runs after one warm-up)
     fused_params = params._replace(backend="fused")
     kmeans(x0, init, w0.bool(), fused_params, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res_f = kmeans(x0, init, w0.bool(), fused_params, device="cuda")
-    torch.cuda.synchronize()
-    fused_ms = (time.perf_counter() - t0) * 1e3
+    fused_runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_f = kmeans(x0, init, w0.bool(), fused_params, device="cuda")
+        torch.cuda.synchronize()
+        fused_runs.append((time.perf_counter() - t0) * 1e3)
+    fused_ms = sorted(fused_runs)[2]
     print(f"[resident] kmeans(backend='resident') on lane 0 "
           f"({s_}x{d_}, k={K}): {secs:.3f} s, iters {int(res.iters)} "
           f"({int(got.passes[0])} score passes), launches {counts}; kernel "
           f"{ms:.4f} ms, plain version {plain_ms:.4f} ms, bound "
-          f"{bound:.4f} ms ({by}); the fused engine's solve {fused_ms:.4f} "
-          f"ms, iters {int(res_f.iters)}", flush=True)
+          f"{bound:.4f} ms ({by}), R = {plan.r} blocks (the rule for a "
+          f"lone lane); the fused engine's solve {fused_ms:.4f} "
+          f"ms (median of {len(fused_runs)}, range {min(fused_runs):.4f}-"
+          f"{max(fused_runs):.4f}), iters {int(res_f.iters)}", flush=True)
+    print(f"[resident] the same solve at each R, bit-identical to the "
+          f"rule's R: {ok}: " + ", ".join(f"R = {r} {t:.4f} ms"
+                                          for r, t in by_r.items()),
+          flush=True)
     report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                  library_ms=None, max_abs_err=err)
+                  library_ms=None, max_abs_err=err, cluster_r=plan.r,
+                  fused_solve_ms=fused_ms, by_cluster=by_r)
     return ok and counts == counts_of(lloyd_solve_resident=1) and bool(
         torch.equal(res.iters.reshape(1), got.iters)) and int(
         res_f.iters) == int(res.iters)
@@ -1286,6 +1434,10 @@ def main() -> int:
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc " + ", ".join(f"{_build.build_seconds.get(src, 0.0):.2f} s"
                                 for src in sources) + ")", flush=True)
+    for src in sources:
+        lines = ptxas_summary(_build.build_log.get(src, ""))
+        for line in lines or ["(an earlier build: no ptxas report)"]:
+            print(f"build: {src}: {line}", flush=True)
 
     def rep(name, source, replaces):
         return {"name": name, "route": "cuda", "source": source,
@@ -1323,7 +1475,7 @@ def main() -> int:
     reports = (report, batched, res_rep, assign_rep, update_rep, init_rep)
     kernels = [{key: r[key] for key in KEYS + ("launches_by_path",)
                 if key in r} for r in reports]
-    for r in (batched, update_rep):
+    for r in (batched, res_rep, update_rep):
         extra = {key: r[key] for key in r if key not in KEYS}
         print(json.dumps({r["name"]: extra}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,13 +22,16 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds each source took to build in this process (0.0 when it was loaded
-# from an earlier build): read by chip_smoke.py
+# from an earlier build), and what ptxas reported for its kernels
+# (registers, shared memory, spills; empty for an earlier build): read by
+# chip_smoke.py
 build_seconds: dict[str, float] = {}
+build_log: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -72,6 +75,7 @@ def build(source: str) -> Path:
                            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     build_seconds[source] = time.perf_counter() - t0
+    build_log[source] = proc.stdout + proc.stderr
     return out
 
 

@@ -3,13 +3,22 @@
 
 The TPU kernel's grid walks groups of T subsets, each group running its
 convergence loop in VMEM.  On the card the kernel in ``csrc/
-lloyd_solve.cu`` gives each lane (subset) one thread block, which runs
-that lane's whole solve: score pass, segment-sum, ``divide_or_keep``, the
-farthest-point reseed of empty clusters (``reseed_empty``), the stop test,
-and after the loop one scoring pass for the SSE.  A lane that converges
-leaves its loop; the others go on.  There is no group size: per-lane
-skipping under ``prune="bounds"`` is the reference's behaviour at
-``group_t=1``.
+lloyd_solve.cu`` gives each lane (subset) one thread-block cluster of R
+blocks on R neighbouring SMs, which runs that lane's whole solve: score
+pass, segment-sum, ``divide_or_keep``, the farthest-point reseed of empty
+clusters (``reseed_empty``), the stop test, and after the loop one scoring
+pass for the SSE.  Each block of a cluster scores its own whole 128-row
+tiles and owns a share of the clusters; the blocks meet at cluster
+barriers and exchange their label histograms, movements and reseed
+candidates through distributed shared memory, so the result has the same
+bits at every R.  A lane that converges leaves its loop; the others go on.
+There is no group size: per-lane skipping under ``prune="bounds"`` is the
+reference's behaviour at ``group_t=1``.
+
+R is not a parameter of the solve: :func:`cluster_plan` picks it from the
+stack's size and what the card reports, and ``solve_stack(...,
+cluster=R)`` forces it (the card's tests and ``chip_smoke.py`` do, to hold
+every R against R = 1).
 
 On a CUDA tensor :func:`lloyd_solve_batched` launches the kernel (built at
 first use) or raises; on a CPU tensor it runs :func:`lloyd_solve_plain`,
@@ -19,6 +28,9 @@ ragged edges itself.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from fractions import Fraction
 from typing import NamedTuple
 
 import torch
@@ -31,9 +43,20 @@ from repro_torch.kernels.resident import bound_block_rows, check_prune
 launches = 0
 
 SOURCE = "lloyd_solve.cu"
-# static shared memory of one block: the score pass's two 16 x 132 f32
-# tiles, the 256-float reduction buffer and a few scalars
-_SMEM_STATIC = 2 * 16 * 132 * 4 + 256 * 4 + 64
+# shared memory of one block: the two buffers of each of its two scoring
+# groups, each a 128-row point tile and a 128-row centroid tile of a
+# 16-wide feature chunk (2 x 16 x 132 f32), which the counting sort's
+# start and cursor reuse between score passes; and the static part, the
+# 256-float reduction buffer and a few scalars
+_SMEM_TILES = 2 * 2 * 2 * 16 * 132 * 4
+_SMEM_STATIC = 256 * 4 + 256
+# rows of a score tile: a block of a cluster owns whole tiles
+TILE_ROWS = 128
+# the cluster sizes the rule chooses from: up to CUDA's portable limit of 8,
+# and 16 where the card allows a non-portable size; the kernel takes up to
+# MAX_CLUSTER
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+MAX_CLUSTER = 16
 
 
 class SolveOut(NamedTuple):
@@ -56,11 +79,57 @@ def _bound_blocks(s: int, prune: str, bound_block: int | None):
 
 def smem_bytes(s: int, k: int, prune: str = "none",
                bound_block: int | None = None) -> int:
-    """Shared memory one block of the kernel needs: the fixed tiles, then
-    the per-cluster sort state and norms (3k + 1 words) and one skip flag
-    per pruning block."""
+    """Shared memory one block of the kernel needs: the static part; the
+    score tiles or the counting sort's start and cursor (2k + 1 words),
+    whichever is larger; the norms or the histogram (k words); and one
+    skip flag per pruning block."""
     _, nb = _bound_blocks(s, prune, bound_block)
-    return _SMEM_STATIC + (3 * k + 1 + nb) * 4
+    return _SMEM_STATIC + max(_SMEM_TILES, (2 * k + 1) * 4) + (k + nb) * 4
+
+
+def rank_unit(bb: int) -> int:
+    """Rows of the unit a lane is split in among the blocks of its cluster:
+    whole score tiles, and whole pruning blocks of ``bb`` rows (0: none)."""
+    return TILE_ROWS if bb == 0 else math.lcm(TILE_ROWS, bb)
+
+
+def cluster_rows(s: int, unit: int, r: int) -> list[int]:
+    """How a lane of ``s`` rows is split among the ``r`` blocks of its
+    cluster, in whole units of ``unit`` rows, as even as the units allow:
+    block ``i`` owns rows [rows[i], rows[i + 1]) of the returned ``r + 1``
+    boundaries.  The kernel takes these boundaries as they are."""
+    nu = -(-s // unit)
+    return [min(nu * i // r * unit, s) for i in range(r + 1)]
+
+
+def cluster_size(m: int, s: int, bb: int, *, clusters: dict[int, int]) -> int:
+    """The rule for R, the blocks of a lane's cluster, from ``clusters``:
+    for each size, how many clusters the card holds at once (0: refused).
+    Lanes run in waves of ``clusters[R]`` lanes, and a lane's solve takes
+    about 1/R of its time on one block, so a stack of ``m`` lanes takes
+    about ceil(m / clusters[R]) / R one-block solves.  R minimises that
+    among the sizes the card takes with no block left without rows (R at
+    most the lane's units, :func:`rank_unit`).  A tie goes to the larger R:
+    when lanes take unequal numbers of trips its last wave is shorter, and
+    its lanes in flight hold fewer centroids in L2.  A lone lane gets the
+    largest R the card takes."""
+    units = -(-s // rank_unit(bb))
+    best, best_cost = 1, None
+    for r in sorted(clusters):
+        if clusters[r] < 1 or r > units:
+            continue
+        cost = Fraction(-(-max(m, 1) // clusters[r]), r)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = r, cost
+    return best
+
+
+class ClusterPlan(NamedTuple):
+    r: int                 # blocks of a lane's cluster
+    unit: int              # rows a block's range is made of
+    rows: list             # the r + 1 row boundaries (cluster_rows)
+    clusters: int          # clusters of r blocks the card holds at once
+    fits: dict             # clusters the card holds at once, per size
 
 
 def batched_feasible(s: int, d: int, k: int, prune: str = "none",
@@ -185,23 +254,75 @@ def lloyd_solve_plain(subsets, centroids, weights=None, *,
 
 
 _fn = None
+_clusters_fn = None
 
 
 def _kernel():
-    global _fn
+    global _fn, _clusters_fn
     if _fn is None:
         from repro_torch.kernels import _build
-        fn = _build.load(SOURCE).lloyd_solve
+        lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p, p, p, i, i, i, i, i, ctypes.c_float, i, i, i]
-                       + [p] * 15)
+        fn = lib.lloyd_solve
+        fn.argtypes = ([p, p, p, i, i, i, i, i, ctypes.c_float]
+                       + [i] * 3 + [p, i] + [p] * 15)
         fn.restype = ctypes.c_int
-        _fn = fn
+        cl = lib.lloyd_solve_clusters
+        cl.argtypes = [i] * 4 + [p]
+        cl.restype = ctypes.c_int
+        _fn, _clusters_fn = fn, cl
     return _fn
 
 
+@functools.lru_cache(maxsize=None)
+def _card_clusters(device: int, k: int, nb: int, bounds: bool,
+                   r: int) -> tuple[int, int]:
+    """(CUDA error, clusters of ``r`` blocks the card holds at once) for
+    this kernel's configuration on card ``device``."""
+    _kernel()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _clusters_fn(k, nb, int(bounds), r, ctypes.addressof(n))
+    return err, n.value
+
+
+def cluster_plan(m: int, s: int, k: int, prune: str = "none",
+                 bound_block: int | None = None, *, device=None,
+                 cluster: int | None = None) -> ClusterPlan:
+    """R for a stack of ``m`` lanes of ``s`` points against ``k`` centroids
+    on a card (:func:`cluster_size` on what the card reports), or the forced
+    ``cluster``.  Raises when the card refuses the cluster shape; it never
+    falls back to a smaller R."""
+    bb, nb = _bound_blocks(s, prune, bound_block)
+    dev = torch.device("cuda" if device is None else device)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+
+    def query(r):
+        return _card_clusters(idx, k, nb, bb > 0, r)
+
+    answers = {r: query(r) for r in CLUSTER_SIZES}
+    fits = {r: 0 if err else n for r, (err, n) in answers.items()}
+    if fits[1] < 1:
+        raise RuntimeError(f"the card holds no block of the whole-solve "
+                           f"kernel (k={k}, CUDA error {answers[1][0]})")
+    if cluster is None:
+        r = cluster_size(m, s, bb, clusters=fits)
+    else:
+        r = int(cluster)
+        if not 1 <= r <= MAX_CLUSTER:
+            raise ValueError(f"a cluster of {r} blocks: the kernel takes "
+                             f"1 to {MAX_CLUSTER}")
+    err, n = query(r)
+    if err or n < 1:
+        raise RuntimeError(f"the card refuses clusters of {r} blocks of the "
+                           f"whole-solve kernel (k={k}, CUDA error {err}, "
+                           f"{n} clusters fit)")
+    unit = rank_unit(bb)
+    return ClusterPlan(r, unit, cluster_rows(s, unit, r), n, fits)
+
+
 def _launch(x, c0, w, *, max_iters, tol, reseed_empty, prune, bound_block,
-            count_as) -> SolveOut:
+            count_as, cluster) -> SolveOut:
     global launches
     m, s, d = x.shape
     k = c0.shape[0]
@@ -233,10 +354,14 @@ def _launch(x, c0, w, *, max_iters, tol, reseed_empty, prune, bound_block,
         return None if t is None else t.data_ptr()
 
     fn = _kernel()
+    plan = cluster_plan(m, s, k, prune, bound_block, device=dev,
+                        cluster=cluster)
+    rows = (ctypes.c_int * len(plan.rows))(*plan.rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(x), ptr(c0), ptr(w), m, s, d, k, int(max_iters),
                  float(tol), int(bool(reseed_empty)), bb, nb,
+                 ctypes.addressof(rows), plan.r,
                  ptr(c), ptr(labels), ptr(mind), ptr(gap), ptr(order),
                  ptr(sums), ptr(counts), ptr(margin), ptr(dacc), ptr(sse),
                  ptr(iters), ptr(conv), ptr(passes), ptr(skips), stream)
@@ -274,13 +399,16 @@ def _check(x, c0, w):
 def solve_stack(subsets, centroids, weights=None, *, max_iters: int = 300,
                 tol: float = 1e-6, reseed_empty: bool = False,
                 prune: str = "none", bound_block: int | None = None,
-                count_as: str = "batched") -> SolveOut:
+                count_as: str = "batched",
+                cluster: int | None = None) -> SolveOut:
     """The kernel's function on a stack: the plain version for a CPU tensor,
     the kernel for a CUDA tensor (which raises when it cannot build or
     launch).  Both refuse a ``k`` beyond one block's shared memory.  A
     launch adds one to the counter of the wrapper named by ``count_as``:
     this module's ``launches`` (``"batched"``) or ``resident.launches``
-    (``"resident"``); an empty stack launches nothing."""
+    (``"resident"``); an empty stack launches nothing.  ``cluster`` forces
+    the blocks a lane's cluster has (default: :func:`cluster_plan`'s rule);
+    it changes no bit of the result."""
     check_prune(prune)
     _check(subsets, centroids, weights)
     s, k = subsets.shape[1], centroids.shape[0]
@@ -288,8 +416,8 @@ def solve_stack(subsets, centroids, weights=None, *, max_iters: int = 300,
         raise ValueError(f"k={k} clusters (S={s}, prune={prune!r}) exceed "
                          f"the whole-solve kernel's shared-memory budget: "
                          f"{smem_bytes(s, k, prune, bound_block)} > "
-                         f"{_SMEM_PER_BLOCK} bytes a block; the fused kernel "
-                         f"has the same limit")
+                         f"{_SMEM_PER_BLOCK} bytes a block (the fused "
+                         f"engine takes a larger k)")
     kw = dict(max_iters=max_iters, tol=tol, reseed_empty=reseed_empty,
               prune=prune, bound_block=bound_block)
     if subsets.device.type == "cpu":
@@ -301,7 +429,7 @@ def solve_stack(subsets, centroids, weights=None, *, max_iters: int = 300,
         weights = torch.ones(subsets.shape[:2], dtype=torch.float32,
                              device=subsets.device)
     return _launch(subsets, centroids.contiguous(), weights,
-                   count_as=count_as, **kw)
+                   count_as=count_as, cluster=cluster, **kw)
 
 
 def lloyd_solve_batched(subsets, centroids, weights=None, *,

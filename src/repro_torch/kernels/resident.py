@@ -4,9 +4,13 @@
 The TPU kernel keeps a subset's points, centroids and accumulators in VMEM
 and runs the convergence loop on the chip.  Here the same per-lane function
 is the whole-solve CUDA kernel of ``batch_resident`` (``csrc/
-lloyd_solve.cu``) launched with one lane: the loop stays on the card, but
-the points stream from device memory on every trip, because one subset
-(4 MB at S = 16384, d = 64) is far larger than a block's shared memory.
+lloyd_solve.cu``) launched with one lane: one thread-block cluster of up to
+16 blocks on as many SMs (the largest the card takes;
+``batch_resident.cluster_plan``) runs the whole loop on the card, each block
+scoring its own share of the rows and summing its own share of the
+clusters.  The points stream from device memory or L2 on every trip,
+because one subset (4 MB at S = 16384, d = 64) is far larger than shared
+memory.
 
 ``prune="bounds"`` turns on bound-gated block skipping: blocks of
 ``bound_block`` rows whose stored reassignment margin beats twice the

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: the fused pass, the whole-solve
 kernel, and the assign, centroid-update and init-sweep kernels against their
 plain versions; the whole-solve kernel's bitwise contracts (bounds == exact,
-one batched launch == one resident launch per lane); the two-pass step's
-sums bit for bit the fused pass's; repeat launches bit-identical.  Marked
+one batched launch == one resident launch per lane, every cluster size ==
+one block a lane, forced with ``solve_stack(..., cluster=R)``); the two-pass
+step's sums bit for bit the fused pass's; repeat launches bit-identical.  Marked
 ``cuda``; skips without a card.
 Run on a machine with one (no JAX needed, so without the JAX conftest):
 
@@ -95,6 +96,10 @@ def _solve_stack(dev):
 KW = dict(max_iters=50, tol=1e-6, reseed_empty=True)
 
 
+def _same(a, b) -> bool:
+    return all(torch.equal(p, q) for p, q in zip(a, b))
+
+
 def test_solve_kernel_matches_plain_version(card):
     x, c, w = _solve_stack(card)
     before = batch_resident.launches
@@ -124,6 +129,75 @@ def test_batched_lane_is_resident_solve_bit_for_bit(card):
     for i in range(x.shape[0]):
         one = resident.lloyd_solve_resident(x[i], c, w[i], **KW)
         assert all(torch.equal(a[i], b) for a, b in zip(stack, one))
+
+
+def _solve_fields(out, lane=None):
+    """A SolveOut's per-lane fields (all but the skip counters)."""
+    fields = (out.centroids, out.sse, out.iters, out.converged, out.passes)
+    return [f if lane is None else f[lane] for f in fields]
+
+
+@pytest.mark.parametrize("reseed", [False, True])
+def test_solve_kernel_same_bits_at_every_cluster_size(card, reseed):
+    # S = 1000: no multiple of R x 128 rows for R > 1, the last block short
+    x, c, w = _solve_stack(card)
+    kw = {**KW, "reseed_empty": reseed}
+    one = batch_resident.solve_stack(x, c, w, cluster=1, **kw)
+    for r in (2, 4, 8):
+        assert _same(batch_resident.solve_stack(x, c, w, cluster=r, **kw),
+                     one), r
+    assert _same(batch_resident.solve_stack(x, c, w, **kw), one)
+
+
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_solve_bounds_is_exact_at_every_cluster_size(card, r):
+    x, c, w = _solve_stack(card)
+    kw = dict(prune="bounds", bound_block=16, **KW)
+    exact = batch_resident.solve_stack(x, c, w, cluster=1, **KW)
+    pruned = batch_resident.solve_stack(x, c, w, cluster=r, **kw)
+    assert _same(_solve_fields(pruned), _solve_fields(exact))
+    # skip counters: integer sums over the blocks, those of one block
+    assert torch.equal(pruned.skips, batch_resident.solve_stack(
+        x, c, w, cluster=1, **kw).skips)
+
+
+def test_batched_lane_is_resident_solve_at_any_cluster_size(card):
+    x, c, w = _solve_stack(card)
+    stack = batch_resident.solve_stack(x, c, w, cluster=2, **KW)
+    for i in range(x.shape[0]):
+        one = batch_resident.solve_stack(x[i:i + 1], c, w[i:i + 1],
+                                         cluster=8, count_as="resident",
+                                         **KW)
+        assert _same(_solve_fields(stack, i), _solve_fields(one, 0))
+
+
+def test_solve_cluster_beyond_the_kernel_raises(card):
+    x, c, w = _solve_stack(card)
+    with pytest.raises(ValueError, match="cluster of 17"):
+        batch_resident.solve_stack(x, c, w, cluster=17, **KW)
+
+
+def test_solve_kernel_at_a_k_whose_sort_outgrows_the_score_tiles(card):
+    # k = 9000: the counting sort's start and cursor (2k + 1 words) take
+    # more shared memory than the score tiles they reuse
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.normal(size=(2, 600, 8)) * 3.0)
+                         .astype(np.float32)).to(card)
+    c = torch.from_numpy((rng.normal(size=(9000, 8)) * 3.0)
+                         .astype(np.float32)).to(card)
+    kw = dict(max_iters=3, tol=1e-6)
+    got = batch_resident.solve_stack(x, c, None, cluster=1, **kw)
+    want = batch_resident.lloyd_solve_plain(x, c, None, **kw)
+    assert torch.equal(got.iters, want.iters)
+    torch.testing.assert_close(got.centroids, want.centroids, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(got.sse, want.sse, rtol=1e-4, atol=0.0)
+    for reseed in (False, True):
+        one = batch_resident.solve_stack(x, c, None, cluster=1,
+                                         reseed_empty=reseed, **kw)
+        for r in (2, 4):
+            assert _same(batch_resident.solve_stack(
+                x, c, None, cluster=r, reseed_empty=reseed, **kw), one), r
 
 
 @pytest.mark.parametrize("shape,kw", [
@@ -162,10 +236,6 @@ def test_solve_counts_only_launches(card):
     resident.lloyd_solve_resident(x[0], c, w[0], **KW)
     assert (batch_resident.launches, resident.launches) == (
         before[0], before[1] + 1)
-
-
-def _same(a, b) -> bool:
-    return all(torch.equal(p, q) for p, q in zip(a, b))
 
 
 def test_assign_kernel_matches_plain_version_and_fused(card):

@@ -275,3 +275,73 @@ def test_bound_block_rows_matches_reference():
         for block in (None, 8, 16, 100, 512):
             assert resident.bound_block_rows(n_pad, block) == jbb(n_pad,
                                                                   block)
+
+
+@pytest.mark.parametrize("s,prune,bound_block", [
+    (16384, "none", None), (16384, "bounds", None), (1000, "bounds", 16),
+    (1000, "bounds", None), (8 * 997, "bounds", 512)])
+def test_cluster_rows_are_whole_tiles_and_pruning_blocks(s, prune,
+                                                         bound_block):
+    # the row boundaries the wrapper hands the kernel
+    bb, nb = batch_resident._bound_blocks(s, prune, bound_block)
+    unit = batch_resident.rank_unit(bb)
+    for r in (1, 2, 3, 4, 8, 16):
+        rows = batch_resident.cluster_rows(s, unit, r)
+        assert len(rows) == r + 1 and rows[0] == 0 and rows[-1] == s
+        assert rows == sorted(rows)
+        for lo, hi in zip(rows, rows[1:]):
+            # whole 128-row tiles, and no pruning block across two ranks
+            assert lo % 128 == 0 and (hi % 128 == 0 or hi == s)
+            assert not bb or (lo % bb == 0 and (hi % bb == 0 or hi == s))
+        if bb:
+            owned = sum(-(-hi // bb) - lo // bb
+                        for lo, hi in zip(rows, rows[1:]) if hi > lo)
+            assert owned == nb
+
+
+# clusters of each size an H100 holds at once (one block an SM, 132 SMs;
+# clusters of 4 to 16 leave part of each GPC idle)
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+
+def test_cluster_size_rule():
+    rule = batch_resident.cluster_size
+    portable = {**H100_CLUSTERS, 16: 0}
+    # a lone lane gets the largest R the card takes, 16 only where allowed
+    assert rule(1, 16384, 0, clusters=H100_CLUSTERS) == 16
+    assert rule(1, 16384, 256, clusters=portable) == 8
+    # the main stack (M = 512): ceil(512 / n) / R is 4 at R = 1 and 2, more
+    # at 4, 8 and 16; the tie goes to R = 2
+    assert rule(512, 16384, 0, clusters=H100_CLUSTERS) == 2
+    assert rule(512, 16384, 256, clusters=H100_CLUSTERS) == 2
+    # 48 lanes: 7 waves of 7 lanes at R = 16 (7/16) beat one of 48 at R = 2
+    assert rule(48, 16384, 0, clusters=H100_CLUSTERS) == 16
+    assert rule(48, 16384, 0, clusters=portable) == 8
+    # one lane of one unit (lcm(128, 200) rows > S): no block without rows
+    assert rule(1, 1000, 200, clusters=H100_CLUSTERS) == 1
+    # a size the card refuses is never chosen
+    assert rule(1, 16384, 0, clusters={1: 132, 2: 66, 4: 0, 8: 0,
+                                       16: 0}) == 2
+    for m in (1, 2, 7, 33, 512, 4096):
+        for fits in (H100_CLUSTERS, portable, {1: 132, 2: 0, 4: 0, 8: 0,
+                                               16: 0}):
+            for s, bb in ((16384, 0), (16384, 256), (1000, 8), (300, 0)):
+                r = rule(m, s, bb, clusters=fits)
+                units = -(-s // batch_resident.rank_unit(bb))
+                assert fits[r] >= 1 and r <= 16 and (r == 1 or r <= units)
+                assert r <= 8 or fits[16] >= 1
+
+
+def test_smem_counts_both_tile_buffers():
+    static, tiles = batch_resident._SMEM_STATIC, batch_resident._SMEM_TILES
+    # two scoring groups of two buffers, each a point and a centroid tile
+    assert tiles == 2 * 2 * 2 * 16 * 132 * 4
+    # the sort's start and cursor reuse the tiles; norms or histogram, then
+    # one skip flag per pruning block
+    assert batch_resident.smem_bytes(16384, 1024, "bounds") == (
+        static + tiles + (1024 + 64) * 4)
+    assert batch_resident.smem_bytes(64, 16000) == static + 3 * 16000 * 4 + 4
+    # the largest k within one block's 227 KB (232,448 bytes)
+    kmax = (232448 - static - 4) // 12
+    assert batch_resident.batched_feasible(64, 2, kmax)
+    assert not batch_resident.batched_feasible(64, 2, kmax + 1)
