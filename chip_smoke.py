@@ -39,9 +39,12 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      fused pass's assign mode and a repeat; its times;
   8. [update]: the assign kernel's labels and distances on the main stack
      against its plain version, then the centroid-update kernel against its
-     plain version on those labels and on a small case with labels -1 and
-     k, bit for bit the fused pass's sums and a repeat; its times, and one
-     large lane;
+     plain version on those labels, on [assign]'s large lane, on that lane
+     skewed (half its rows in one cluster, 10% labelled -1 or k) and on a
+     small case with labels -1 and k, bit for bit the fused pass's sums on
+     the same labels and a repeat; its chunk plans; its times on the stack,
+     the large lane and the skewed lane beside their bounds and the library
+     yardstick, and each pass's device time (torch.profiler);
   9. [init]: one init sweep at n = 2**23 against 2048 candidates, with
      psi_prev from a round 0, against its plain version (draws equal except
      at boundary rows); round 0 draws nothing, no candidate leaves mind as
@@ -127,6 +130,14 @@ INIT_C = 2048
 # within UPDATE_REL of their largest magnitude (f32 sums of the same terms
 # in another order)
 UPDATE_REL = 1e-5
+# [update]'s skewed lane: one warp sums cluster 0's 2**19 rows in point order
+# (the fused pass's order, which the bits require), and the rounding of an
+# f32 sum grows with its terms.  There each entry is held to the
+# probabilistic bound of a sum of n terms (Higham and Mary, 2019):
+# |err| <= SEQ_LAMBDA sqrt(n) 2**-24 sum |w x|, for the kernel's and the
+# plain version's sums each; at 6 an entry fails by chance with probability
+# below 2 exp(-18), about 3e-8
+SEQ_LAMBDA = 6.0
 # init sweep against its plain version ([init], [seed]): new_mind within
 # INIT_REL of ||x||^2 + mind (the score ||c||^2 - 2 x.c + ||x||^2 cancels at
 # that scale, so a point that is itself a candidate keeps a rounding residue
@@ -1016,7 +1027,7 @@ def phase_assign(torch, report: dict):
           f"{gr.labels.numel()}", flush=True)
     report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                   library_ms=lib_ms, max_abs_err=max(err, err_r))
-    return x1, got.labels, k1
+    return x1, c1, got.labels, k1
 
 
 def library_update(x, lab, w, k):
@@ -1033,15 +1044,80 @@ def library_update(x, lab, w, k):
     return sums, counts
 
 
+def pass_times(torch, fn, reps: int = 3) -> dict:
+    """Device time of each kernel that ``fn`` launches, from torch.profiler
+    over ``reps`` calls after a warm-up -> {kernel: ms a call}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = e.cuda_time_total if t is None else t
+        if t > 0:
+            name = re.findall(r"(\w+)\(", e.key)
+            out[name[0] if name else e.key] = round(t / reps / 1e3, 4)
+    return out
+
+
+def update_checks(torch, tag, x, c, lab, w, k, w_fused=None,
+                  long_sums=False):
+    """The centroid-update kernel on (x, lab, w) against its plain version
+    (counts exact, sums within UPDATE_REL of their largest magnitude, or
+    with ``long_sums`` within SEQ_LAMBDA's bound per entry), bit for bit
+    against the fused pass's step of x against c (whose labels are lab
+    where ``w_fused`` > 0; zero-weight rows add exactly 0) and a repeat ->
+    (ok, max abs error, the kernel's output)."""
+    from repro_torch.kernels import centroid_update, fused
+    lanes = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    got = centroid_update.centroid_update(x, lab, w, k)
+    plain = centroid_update.centroid_update_plain(x, lab, w, k, lanes)
+    step = fused.fused_lloyd(x, c, w if w_fused is None else w_fused)
+    again = centroid_update.centroid_update(x, lab, w, k)
+    torch.cuda.synchronize()
+    cnt_ok = torch.equal(got[1], plain[1])
+    err = float(torch.max(torch.abs(got[0] - plain[0])))
+    scale = float(torch.max(torch.abs(plain[0])))
+    fused_same = torch.equal(got[0], step.sums) and torch.equal(got[1],
+                                                               step.counts)
+    repeat = identical(got, again)
+    if long_sums:
+        terms = centroid_update.centroid_update_plain(
+            x, lab, torch.ones_like(w), k, lanes)[1].unsqueeze(-1)
+        mag = centroid_update.centroid_update_plain(x.abs(), lab, w.abs(),
+                                                    k, lanes)[0]
+        tol = 2.0 * SEQ_LAMBDA * torch.sqrt(terms) * 2.0 ** -24 * mag
+        ratio = float(torch.max(torch.abs(got[0] - plain[0])
+                                / torch.clamp(tol, min=1e-30)))
+        sums_ok = ratio <= 1.0
+        how = (f"largest |err| / (2 x {SEQ_LAMBDA} sqrt(n) 2^-24 sum|w x|) "
+               f"{ratio:.3g}, relative {err / scale:.3g}")
+    else:
+        sums_ok = err <= UPDATE_REL * scale
+        how = f"tol {UPDATE_REL} x {scale:.3g}"
+    ok = cnt_ok and sums_ok and fused_same and repeat
+    print(f"[update] {tag}: counts equal={cnt_ok}, sums max|err| {err:.3g} "
+          f"({how}); bit-identical to the fused pass's sums: {fused_same}; "
+          f"repeat bit-identical: {repeat}", flush=True)
+    return ok, err, got
+
+
 def phase_update(torch, report: dict, main: dict, big) -> bool:
     """The assign kernel on the main stack against the fused run's
     converged centroids, held against its plain version; then the
-    centroid-update kernel against its plain version on those labels (the
-    packed masks as weights) and on a small case with an empty cluster and
-    labels of -1 and k; bit for bit the fused pass's sums on the same
-    labels, and a repeat; then its times, and one large lane."""
-    from repro_torch.kernels import assign, centroid_update, fused
+    centroid-update kernel on those labels (the packed masks as weights),
+    on [assign]'s one large lane, on that lane skewed (half its rows in
+    cluster 0, 10% labelled -1 or k) and on a small case with an empty
+    cluster and labels of -1 and k: each against its plain version, bit
+    for bit the fused pass's sums on the same labels, and a repeat; then
+    its times beside the library yardstick's, and its chunk plans."""
+    from repro_torch.kernels import assign, centroid_update
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     subsets, masks = main["subsets"], main["masks"]
     cents = main["res_f"].intermediate.contiguous()
     m, s, d = subsets.shape
@@ -1053,18 +1129,41 @@ def phase_update(torch, report: dict, main: dict, big) -> bool:
                                         torch)
     del pa
     lab = ka.labels
-    got = centroid_update.centroid_update(subsets, lab, masks, K)
-    plain = centroid_update.centroid_update_plain(subsets, lab, masks, K,
-                                                  lanes)
-    step = fused.fused_lloyd(subsets, cents, masks)
-    again = centroid_update.centroid_update(subsets, lab, masks, K)
-    torch.cuda.synchronize()
-    cnt_ok = torch.equal(got[1], plain[1])
-    err = float(torch.max(torch.abs(got[0] - plain[0])))
-    scale = float(torch.max(torch.abs(plain[0])))
-    fused_same = torch.equal(got[0], step.sums) and torch.equal(got[1],
-                                                               step.counts)
-    repeat = identical(got, again)
+    plan = centroid_update.chunk_plan(m, s, sms)
+    print(f"[update] main stack {m}x{s}x{d}, k={K}: the assign kernel's "
+          f"labels differ from the plain version's at {n_ties} near-ties; "
+          f"chunk plan on {sms} SMs: {plan.chunks} chunk(s) of {plan.rows} "
+          f"rows a lane, {m * plan.chunks} blocks", flush=True)
+    ok_main, err, _ = update_checks(torch, "main stack", subsets, cents,
+                                    lab, masks, K)
+
+    x1, c1, lab1, k1 = big
+    n1 = x1.shape[1]
+    w1 = torch.ones(x1.shape[:2], device=dev)
+    plan1 = centroid_update.chunk_plan(1, n1, sms)
+    print(f"[update] one lane {n1}x{D}, k={k1}: chunk plan {plan1.chunks} "
+          f"chunks of {plan1.rows} rows, {plan1.segs} prefix segments",
+          flush=True)
+    ok_big, err_big, _ = update_checks(torch, "one lane", x1, c1, lab1, w1,
+                                       k1)
+    # the skewed lane: half the rows moved next to centroid 0, which the
+    # assign kernel labels 0, and 10% of the rest labelled -1 or k (zero
+    # weight in the fused pass's step)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    perm = torch.randperm(n1, generator=gen, device=dev)
+    half, bad = perm[:n1 // 2], perm[n1 // 2:n1 // 2 + n1 // 10]
+    xs1 = x1.clone()
+    xs1[0, half] = c1[0, 0] + 0.3 * torch.randn((half.numel(), D),
+                                                generator=gen, device=dev)
+    labs = assign.assign(xs1, c1).labels
+    labs[0, bad[::2]] = -1
+    labs[0, bad[1::2]] = k1
+    wf = w1.clone()
+    wf[0, bad] = 0.0
+    share0 = float((labs == 0).float().mean())
+    ok_skew, err_skew, _ = update_checks(
+        torch, f"skewed lane ({share0:.3f} of rows in cluster 0)", xs1, c1,
+        labs, w1, k1, w_fused=wf, long_sums=True)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     xs = torch.randn((3, 1000, 17), generator=gen, device=dev) * 3.0
@@ -1083,41 +1182,57 @@ def phase_update(torch, report: dict, main: dict, big) -> bool:
                                         atol=1e-4))
                 and float(gs[1].sum()) == float(ws[:, 70:].sum())
                 and not bool(gs[1][:, 11].any()))
-    print(f"[update] main stack {m}x{s}x{d}, k={K}: the assign kernel's "
-          f"labels differ from the plain version's at {n_ties} near-ties; "
-          f"centroid update: counts equal={cnt_ok}, "
-          f"sums max|err| {err:.3g} (tol {UPDATE_REL} x {scale:.3g}); "
-          f"bit-identical to the fused pass's sums: {fused_same}; repeat "
-          f"bit-identical: {repeat}; small case with labels -1 and k and an "
-          f"empty cluster agrees: {small_ok}", flush=True)
-    if not (lab_ok and cnt_ok and err <= UPDATE_REL * scale and fused_same
-            and repeat and small_ok):
+    print(f"[update] small case with labels -1 and k and an empty cluster "
+          f"agrees: {small_ok}", flush=True)
+    if not (lab_ok and ok_main and ok_big and ok_skew and share0 > 0.45
+            and small_ok):
         print("[update] FAIL", flush=True)
         return False
 
     ms = cuda_time_ms(lambda: centroid_update.centroid_update(
-        subsets, lab, masks, K), reps=3)
+        subsets, lab, masks, K), reps=20)
     plain_ms = cuda_time_ms(lambda: centroid_update.centroid_update_plain(
         subsets, lab, masks, K, lanes), reps=2, warmup=1)
     lib_ms = cuda_time_ms(lambda: library_update(subsets, lab, masks, K),
-                          reps=2, warmup=1)
+                          reps=5, warmup=1)
     bound, by = bound_ms(2.0 * m * s * d,
-                              4.0 * (m * s * d + 2 * m * s + m * K * d
-                                     + m * K))
-    x1, lab1, k1 = big
-    w1 = torch.ones(x1.shape[:2], device=dev)
+                         4.0 * (m * s * d + 2 * m * s + m * K * d + m * K))
     big_ms = cuda_time_ms(lambda: centroid_update.centroid_update(
-        x1, lab1, w1, k1), reps=2, warmup=1)
-    big_bound, _ = bound_ms(2.0 * x1.shape[1] * D,
-                                 4.0 * (x1.shape[1] * (D + 2) + k1 * (D + 1)))
-    print(f"[update] kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
-          f"library yardstick {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
-          f"one lane of {x1.shape[1]} points, k={k1} (one block): "
-          f"{big_ms:.4f} ms against a bound of {big_bound:.4f} ms",
-          flush=True)
+        x1, lab1, w1, k1), reps=20)
+    big_lib_ms = cuda_time_ms(lambda: library_update(x1, lab1, w1, k1),
+                              reps=5, warmup=1)
+    big_bound, _ = bound_ms(2.0 * n1 * D,
+                            4.0 * (n1 * (D + 2) + k1 * (D + 1)))
+    skew_ms = cuda_time_ms(lambda: centroid_update.centroid_update(
+        xs1, labs, w1, k1), reps=3, warmup=1)
+    n_valid = int(((labs >= 0) & (labs < k1)).sum())
+    skew_bound, _ = bound_ms(2.0 * n_valid * D,
+                             4.0 * (n_valid * D + 2 * n1 + k1 * (D + 1)))
+    passes = {tag: pass_times(torch, fn) for tag, fn in (
+        ("main stack", lambda: centroid_update.centroid_update(
+            subsets, lab, masks, K)),
+        ("one lane", lambda: centroid_update.centroid_update(
+            x1, lab1, w1, k1)),
+        ("skewed lane", lambda: centroid_update.centroid_update(
+            xs1, labs, w1, k1)))}
+    for tag, times in passes.items():
+        print(f"[update] {tag}: device ms a call by pass (torch.profiler): "
+              f"{json.dumps(times)}", flush=True)
+    print(f"[update] main stack: kernel {ms:.4f} ms, plain version "
+          f"{plain_ms:.4f} ms, library yardstick {lib_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}); one lane of {n1} points, k={k1}: kernel "
+          f"{big_ms:.4f} ms, library yardstick {big_lib_ms:.4f} ms, bound "
+          f"{big_bound:.4f} ms; the skewed lane: kernel {skew_ms:.4f} ms, "
+          f"bound {skew_bound:.4f} ms", flush=True)
     report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                  library_ms=lib_ms, max_abs_err=err, one_lane_ms=big_ms,
-                  one_lane_bound_ms=big_bound)
+                  library_ms=lib_ms,
+                  max_abs_err=max(err, err_big, err_skew),
+                  chunk_plan=[plan.rows, plan.chunks], one_lane_ms=big_ms,
+                  one_lane_library_ms=big_lib_ms,
+                  one_lane_bound_ms=big_bound,
+                  one_lane_chunk_plan=[plan1.rows, plan1.chunks],
+                  skewed_ms=skew_ms, skewed_bound_ms=skew_bound,
+                  passes=passes)
     return True
 
 

@@ -24,8 +24,10 @@
 //     scan_counts, stable_scatter, cluster_sums) are separate so that the
 //     whole-solve kernel can run them across the blocks of a cluster with
 //     the same bits.  lane_segment_sums is the same as the body of a kernel
-//     with one block per listed lane, shared by the fused pass's accumulate
-//     kernel and the centroid-update kernel (sweeps.cu).
+//     with one block per listed lane, the fused pass's accumulate kernel.
+//     The centroid-update kernel (sweeps.cu) spreads the same sort over
+//     many blocks and sums with cluster_sums's arithmetic, so its sums are
+//     these bit for bit.
 //   * block_weighted_sum: the lane's SSE as a fixed-shape tree.
 //
 // Arrays that the whole-solve kernel writes while it runs (centroids,

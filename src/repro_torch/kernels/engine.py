@@ -26,7 +26,9 @@ whole-solve kernel, one launch per stack).  ``tuned`` raises
 ``pallas`` names the port's ``twopass``.
 ``prune="bounds"`` is accepted everywhere: the whole-solve kernels skip
 score passes with it, and the per-step engines run their exact loop, which
-gives the same result.
+gives the same result.  Past the whole-solve kernel's shared memory,
+``resident`` and ``batched`` run the fused engine's per-step loop instead,
+as the reference's do.
 """
 from __future__ import annotations
 
@@ -247,20 +249,35 @@ class ResidentEngine(FusedEngine):
     """The whole-solve kernel, one launch per subset: the convergence loop,
     the reseed of empty clusters and the final scoring pass run on the card
     with no host between trips.  ``step``/``assign``/``sse`` are the fused
-    engine's.  A stack is one launch per lane (the reference's vmap of the
-    resident solve).  A ``k`` beyond one block's shared memory raises
-    ``ValueError``: the fused kernel has the same limit, so there is no
-    engine to fall back to."""
+    engine's.  A stack is one solve per lane (the reference's vmap of the
+    resident solve).  A shape beyond the whole-solve kernel's shared memory
+    (``resident.resident_feasible``; for example k = 20,000 at any S) runs
+    the fused engine's per-step host loop instead, as the reference falls
+    back: the fused kernel on a card, its plain version on the CPU.  Past
+    the fused kernel's own limit its wrapper raises."""
 
     name = "resident"
+
+    def _fused_loop(self, subsets, init_centroids, weights, **kw):
+        return LloydEngine.solve_batched(self, subsets, init_centroids,
+                                         weights, **kw)
 
     def solve(self, points, init_centroids, weights=None, *,
               max_iters: int, tol: float, reseed_empty: bool = False,
               prune: str = "none"):
-        from repro_torch.kernels import ops
-        return ops.lloyd_solve_resident(
-            points, init_centroids, weights, max_iters=max_iters, tol=tol,
-            reseed_empty=reseed_empty, prune=prune)
+        from repro_torch.kernels import ops, resident
+        check_prune(prune)
+        kw = dict(max_iters=max_iters, tol=tol, reseed_empty=reseed_empty,
+                  prune=prune)
+        n, d = points.shape
+        if not resident.resident_feasible(n, d, init_centroids.shape[0],
+                                          prune=prune):
+            c, s, it, conv = self._fused_loop(
+                points.unsqueeze(0), init_centroids,
+                None if weights is None else weights.unsqueeze(0), **kw)
+            return c[0], s[0], it[0], conv[0]
+        return ops.lloyd_solve_resident(points, init_centroids, weights,
+                                        **kw)
 
     def solve_batched(self, subsets, init_centroids, weights=None, *,
                       max_iters: int, tol: float, reseed_empty: bool = False,
@@ -275,18 +292,28 @@ class ResidentEngine(FusedEngine):
 
 class BatchedEngine(ResidentEngine):
     """The whole-solve kernel over a whole S2 stack in ONE launch, one
-    thread block per lane; each lane is bit-for-bit the ``resident`` solve.
-    Single solves (``solve``) are the resident engine's."""
+    thread-block cluster per lane (``batch_resident.cluster_plan``); each
+    lane is bit-for-bit the ``resident`` solve.  A shape beyond the kernel's
+    shared memory (``batch_resident.batched_feasible``) runs the fused
+    engine's per-step host loop over the whole stack instead, as the
+    reference falls back.  Single solves (``solve``) are the resident
+    engine's."""
 
     name = "batched"
 
     def solve_batched(self, subsets, init_centroids, weights=None, *,
                       max_iters: int, tol: float, reseed_empty: bool = False,
                       prune: str = "none"):
-        from repro_torch.kernels import ops
-        return ops.lloyd_solve_batched(
-            subsets, init_centroids, weights, max_iters=max_iters, tol=tol,
-            reseed_empty=reseed_empty, prune=prune)
+        from repro_torch.kernels import batch_resident, ops
+        check_prune(prune)
+        kw = dict(max_iters=max_iters, tol=tol, reseed_empty=reseed_empty,
+                  prune=prune)
+        _, s, d = subsets.shape
+        if not batch_resident.batched_feasible(s, d, init_centroids.shape[0],
+                                               prune=prune):
+            return self._fused_loop(subsets, init_centroids, weights, **kw)
+        return ops.lloyd_solve_batched(subsets, init_centroids, weights,
+                                       **kw)
 
 
 register(EagerEngine())

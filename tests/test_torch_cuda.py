@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch.core.ipkmeans import IPKMeansConfig, ipkmeans
-from repro_torch.core.kmeans import KMeansParams
+from repro_torch.core.kmeans import KMeansParams, kmeans_batched
 from repro_torch.kernels import (assign, batch_resident, centroid_update,
                                  engine, fused, init, resident)
 
@@ -277,6 +277,100 @@ def test_centroid_update_kernel_matches_plain_version_and_fused(card):
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
     assert _same(got, centroid_update.centroid_update(x, bad, w, k))
     assert float(got[1].sum()) == float(w[:, 90:].sum())
+
+
+def _update_case(dev, case):
+    """(x, c, w, rows, bad) for the centroid-update cases: the labels are
+    the fused pass's assign of x against c, then the rows in ``bad`` are
+    relabelled -1 or k; ``rows`` forces the chunk size."""
+    g = torch.Generator().manual_seed(7)
+    rows = {"one_chunk": 1024, "many_chunks": 32, "ragged": 96}.get(case)
+    if rows is not None:
+        x, c, w = _ragged(dev, seed=7)
+        return x, c, w, rows, None
+    n, d, k = {"big_lane": (1 << 18, 64, 1000),
+               "skewed": (1 << 16, 64, 256)}[case]
+    c = torch.randn((1, k, d), generator=g) * 3.0
+    x = c[:, torch.randint(0, k, (n,), generator=g)] + torch.randn(
+        (1, n, d), generator=g) * 0.3
+    w = (torch.rand((1, n), generator=g) > 0.1).float()
+    bad = None
+    if case == "skewed":
+        half = torch.randperm(n, generator=g)
+        x[0, half[:n // 2]] = c[0, 0] + torch.randn(
+            (n // 2, d), generator=g) * 0.3
+        bad = half[n // 2:n // 2 + n // 10]
+    return x.to(dev), c.to(dev), w.to(dev), None, bad
+
+
+@pytest.mark.parametrize("case", ["one_chunk", "many_chunks", "ragged",
+                                  "big_lane", "skewed"])
+def test_update_kernel_chunks_are_fused_bit_for_bit(card, case):
+    x, c, w, rows, bad = _update_case(card, case)
+    m, k = x.shape[0], c.shape[1]
+    lab = fused.fused_lloyd(x, c, assign_only=True).labels
+    w_f = w.clone()
+    if bad is not None:
+        lab[0, bad[::2]] = -1
+        lab[0, bad[1::2]] = k
+        w_f[0, bad] = 0.0                  # a zero weight adds exactly 0
+        assert float((lab == 0).float().mean()) > 0.45
+    before = centroid_update.launches
+    sums, counts = centroid_update.centroid_update(x, lab, w, k,
+                                                   chunk_rows=rows)
+    assert centroid_update.launches == before + 1
+    step = fused.fused_lloyd(x, c, w_f)
+    assert torch.equal(sums, step.sums) and torch.equal(counts, step.counts)
+    plain = centroid_update.centroid_update_plain(
+        x, lab, w, k, torch.arange(m, dtype=torch.int32, device=card))
+    assert torch.equal(counts, plain[1])
+    scale = float(torch.max(torch.abs(plain[0])))
+    assert float(torch.max(torch.abs(sums - plain[0]))) <= 1e-5 * scale
+    assert _same((sums, counts), centroid_update.centroid_update(
+        x, lab, w, k, chunk_rows=rows))
+
+
+def test_update_kernel_at_a_k_near_its_limit(card):
+    """k = 58,000 of the kernel's 58,112 (k counts in one block's shared
+    memory); the fused pass refuses such a k, so the bits are held against
+    another chunk plan instead."""
+    g = torch.Generator().manual_seed(8)
+    k, n, d = 58000, 2000, 17
+    x = (torch.randn((1, n, d), generator=g) * 3.0).to(card)
+    w = (torch.rand((1, n), generator=g) > 0.2).float().to(card)
+    lab = torch.randint(-1, k + 1, (1, n), generator=g,
+                        dtype=torch.int32).to(card)
+    lab[0, :300] = 5                       # one crowded cluster
+    sums, counts = centroid_update.centroid_update(x, lab, w, k)
+    plain = centroid_update.centroid_update_plain(
+        x, lab, w, k, torch.zeros(1, dtype=torch.int32, device=card))
+    assert torch.equal(counts, plain[1])
+    scale = float(torch.max(torch.abs(plain[0])))
+    assert float(torch.max(torch.abs(sums - plain[0]))) <= 1e-5 * scale
+    assert _same((sums, counts), centroid_update.centroid_update(
+        x, lab, w, k, chunk_rows=32))
+    with pytest.raises(ValueError, match="shared-memory"):
+        centroid_update.centroid_update(x, lab, w, 58113)
+
+
+@pytest.mark.parametrize("backend", ["resident", "batched"])
+def test_whole_solve_engines_fall_back_to_the_fused_kernel(card, backend):
+    """Past the whole-solve kernel's shared memory the engines run the
+    fused kernel's per-step loop and launch no whole-solve kernel."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn((1, 64, 2), generator=g)
+    c = torch.randn((20000, 2), generator=g) * 2.0
+    before = (fused.launches, batch_resident.launches, resident.launches)
+    got = kmeans_batched(x, None, c, KMeansParams(backend=backend),
+                         device=card)
+    after = (fused.launches, batch_resident.launches, resident.launches)
+    assert after[0] > before[0] and after[1:] == before[1:]
+    # the fused engine's own solve: the same launches, the same bits
+    want = kmeans_batched(x, None, c, KMeansParams(backend="fused"),
+                          device=card)
+    assert torch.equal(got.iters, want.iters)
+    assert torch.equal(got.centroids, want.centroids)
+    assert torch.equal(got.sse, want.sse)
 
 
 @pytest.mark.parametrize("case", ["draw", "round0", "no_candidates",

@@ -262,11 +262,34 @@ def test_k_beyond_shared_memory_raises(backend):
     k = 20000
     assert not resident.resident_feasible(64, 2, k)
     assert batch_resident.batched_feasible(16384, 64, 1024, prune="bounds")
-    x = np.zeros((1, 64, 2), np.float32)
-    c = np.zeros((k, 2), np.float32)
+    x = torch.zeros((1, 64, 2))
+    c = torch.zeros((k, 2))
+    # the kernel's limit: its wrappers refuse, and the engines fall back
     with pytest.raises(ValueError, match="shared-memory"):
-        kmeans_batched(x, None, c, KMeansParams(backend=backend),
-                       device="cpu")
+        if backend == "resident":
+            ops.lloyd_solve_resident(x[0], c)
+        else:
+            ops.lloyd_solve_batched(x, c)
+
+
+@pytest.mark.parametrize("backend", ["resident", "batched"])
+def test_k_beyond_shared_memory_falls_back_like_reference(backend):
+    """Past the whole-solve kernel's shared memory both engines run the
+    fused per-step loop, as the reference's do."""
+    k = 20000
+    rng = np.random.default_rng(40)
+    x = rng.normal(size=(1, 64, 2)).astype(np.float32)
+    c = (rng.normal(size=(k, 2)) * 2.0).astype(np.float32)
+    assert not batch_resident.batched_feasible(64, 2, k)
+    want = jkmeans_batched(jnp.asarray(x), None, jnp.asarray(c),
+                           JParams(backend=backend))
+    got = kmeans_batched(x, None, c, KMeansParams(backend=backend),
+                         device="cpu")
+    np.testing.assert_array_equal(got.iters.numpy(), np.asarray(want.iters))
+    np.testing.assert_allclose(got.centroids.numpy(),
+                               np.asarray(want.centroids), rtol=RTOL)
+    np.testing.assert_allclose(got.sse.numpy(), np.asarray(want.sse),
+                               rtol=RTOL)
 
 
 def test_bound_block_rows_matches_reference():

@@ -92,14 +92,18 @@ def test_plain_versions_in_row_chunks_match_one_block(monkeypatch):
     """The plain assigns and init sweep give the same labels and draws when
     their scores go in row chunks (``ref.by_row_chunks``) as in one block,
     and distances within a few ulps (the BLAS rounds a 9-row product
-    another way than a 100-row one)."""
+    another way than a 100-row one); the plain update, whose one-hot goes
+    in row chunks too, the same counts and sums within a few ulps."""
     x, c, w = (torch.from_numpy(a) for a in _case(6, n=100, d=4, k=7))
     u = torch.from_numpy(np.random.default_rng(6).random(100, np.float32))
     old = torch.full((100,), torch.inf)
+    lab = ref.assign_ref(x, c)[0]
+    lab[:5] = -1
 
     def outputs():
         return (assign.assign(x, c), ref.assign_ref(x, c),
-                ref.init_sweep_ref(x, c, old, u, 50.0, ell=4.0, weights=w))
+                ref.init_sweep_ref(x, c, old, u, 50.0, ell=4.0, weights=w),
+                centroid_update.centroid_update(x, lab, w, 7))
 
     whole = outputs()
     monkeypatch.setattr(ref, "PLAIN_SCORE_ELEMS", 7 * 9)   # 9-row chunks
@@ -112,6 +116,9 @@ def test_plain_versions_in_row_chunks_match_one_block(monkeypatch):
     assert torch.equal(drawn, drawn2)
     torch.testing.assert_close(mind, mind2, **close)
     torch.testing.assert_close(psi, psi2, **close)
+    (sums, counts), (sums2, counts2) = whole[3], chunked[3]
+    assert torch.equal(counts, counts2)
+    torch.testing.assert_close(sums, sums2, **close)
 
 
 def test_kmeans_twopass_matches_reference_pallas():
@@ -190,3 +197,27 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="cand_valid"):
         init.init_sweep(x, c, w, w, 1.0, ell=2.0,
                         cand_valid=torch.ones(3, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("n_lanes", [1, 512])
+def test_chunk_plan_covers_every_row_once(n_lanes):
+    """The centroid-update kernel's chunks: every row of [0, S) in exactly
+    one chunk, whole multiples of 32 rows but the last, and enough chunks
+    for two blocks an SM of a 132-SM card where 32-row chunks allow it."""
+    sms = 132
+    for s in (1, 31, 32, 4097, 1 << 20):
+        plan = centroid_update.chunk_plan(n_lanes, s, sms)
+        # chunk c is rows [c C, min((c + 1) C, S)), as the kernel cuts them
+        b = [min(c * plan.rows, s) for c in range(plan.chunks + 1)]
+        assert len(b) == plan.chunks + 1 and b[0] == 0 and b[-1] == s
+        sizes = np.diff(b)
+        assert (sizes > 0).all() and sizes.sum() == s
+        assert (sizes[:-1] == plan.rows).all() and sizes[-1] <= plan.rows
+        assert plan.rows % 32 == 0
+        assert plan.rows <= centroid_update.CHUNK_ROWS
+        assert plan.chunks == -(-s // plan.rows)
+        assert plan.segs == -(-plan.chunks // centroid_update.CHUNK_SEG)
+        assert n_lanes * plan.chunks >= min(2 * sms, n_lanes * -(-s // 32))
+    assert centroid_update.chunk_plan(1, 4097, sms, rows=64).chunks == 65
+    with pytest.raises(ValueError, match="multiple of 32"):
+        centroid_update.chunk_plan(1, 100, sms, rows=48)
