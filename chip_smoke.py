@@ -57,7 +57,26 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      ``ipkmeans(cfg.with_init("kmeans||"))`` on ``backend="batched"``;
  11. [twopass]: the main path on ``backend="twopass"`` against the fused
      engine's run;
- 12. a ``{"kernels": [...]}`` line, the card's line, and as the last line
+ 12. [pkmeans]: the PKMeans baseline through ``repro_torch.pkmeans`` on
+     [main]'s input and seeds, on ``backend="twopass"`` (the assign and
+     centroid-update kernels every trip): iterations, wall time, launches,
+     SSE, and the IPKMeans/PKMeans ratios of SSE and time against [main]'s
+     batched job (printed, not gated); one trip's time beside its bound and
+     one fused one-lane step's; ``twopass`` and ``fused`` bit-identical for
+     3 iterations; ``twopass`` against the plain ``eager`` engine on the
+     first 2**18 points, and trip by trip for 2 trips on the whole lane,
+     with one fused step against the eager step there;
+ 13. [s1]: at the main input, the histogram builder's region ids against
+     the sort builder's, the bucketed labeler, the sorted pack against the
+     scatter pack bit for bit, their times; ``ipkmeans`` on ``batched``
+     with ``s1="histogram", pack="sorted"``, ``partition="kd_random"`` and
+     ``"random"``, their stage times and SSE;
+ 14. [merge]: ``hierarchical_merge`` of the first 8 lanes' intermediate
+     centroids of [main]'s batched run (N = 8192) on the card, timed, and
+     on the CPU, survivors bit for bit (the reference's flat argmin
+     search timed beside the row minima on the card); the merged SSE
+     against min-ASSE's;
+ 15. a ``{"kernels": [...]}`` line, the card's line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no last line.  Without a CUDA
@@ -144,6 +163,22 @@ SEQ_LAMBDA = 6.0
 # in both), psi within INIT_REL; a draw may differ only where
 # |u psi_prev - ell mind| is within INIT_REL of ell mind
 INIT_REL = 1e-5
+# [pkmeans]: iterations of the twopass-against-fused check; the cut of the
+# main input on which twopass is held against the plain eager engine, and
+# its tolerance.  The kernel and cuBLAS round the scores otherwise, so a
+# label may flip at a near-tie and move a centroid by a point's share; the
+# runs must agree in iterations and in SSE within PK_RTOL, and trip by trip
+# from the same centroids, labels may differ only at near-ties (TIE_REL)
+# and centroids only in the clusters those labels moved (PK_RTOL elsewhere,
+# relative to max(|c|, 1): f32 sums in another order)
+PK_CHECK_ITERS = 3
+PK_SMALL_N = 1 << 18
+# trips of the same trip-by-trip check on the whole lane (n = N), the first
+# of them also holding one fused step against the eager step
+PK_FULL_TRIPS = 2
+PK_RTOL = 1e-4
+# [merge]: the lanes of [main]'s batched stack whose centroids are merged
+MERGE_LANES = 8
 
 
 def fail(msg: str) -> int:
@@ -632,33 +667,33 @@ def counts_of(**nonzero) -> dict:
     return {**dict.fromkeys(counted_modules(), 0), **nonzero}
 
 
-def run_path(torch, x, init, cfg, dev):
+def run_path(torch, x, init, cfg, dev, generator=None):
     """One ipkmeans call through the entry point, the counts set to 0 just
     before and read just after: (result, seconds, counts)."""
     from repro_torch.core import ipkmeans
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    res = ipkmeans(x, init, cfg, device=dev)
+    res = ipkmeans(x, init, cfg, generator=generator, device=dev)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return res, secs, read_counts()
 
 
-def stage_times(torch, x, init, cfg, dev):
+def stage_times(torch, x, init, cfg, dev, generator=None):
     """S1, S2, S3 run one at a time, each timed: (s1, s2, s3, stack, masks,
     S2 result)."""
     from repro_torch.core.ipkmeans import _merge_stage, _partition_and_pack
     from repro_torch.core.kmeans import kmeans_batched
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, subsets, masks = _partition_and_pack(x, cfg)
+    _, subsets, masks = _partition_and_pack(x, cfg, generator=generator)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     stage = kmeans_batched(subsets, masks, init, cfg.kmeans, device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    _merge_stage(x, stage)
+    _merge_stage(x, stage, cfg)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     return t1 - t0, t2 - t1, t3 - t2, subsets, masks, stage
@@ -880,7 +915,8 @@ def phase_main(torch, report: dict, solve_report: dict):
                             masks, reps=3))
     return dict(x=x, init=init, subsets=subsets, masks=masks, res_f=res_f,
                 res_b=res_b, counts_f=counts_f, s2_fused=st_f[1],
-                config=config, sane=sane, describe=describe)
+                secs_b=secs_b, stages_b=st_b[:3], one=one, config=config,
+                sane=sane, describe=describe)
 
 
 def phase_resident(torch, report: dict, main: dict) -> bool:
@@ -1519,6 +1555,331 @@ def phase_twopass(torch, update_rep: dict, assign_rep: dict,
 
 
 
+def pkmeans_job(torch, x, init, params, dev, mask=None):
+    """One pkmeans call through the entry point, the counts set to 0 just
+    before and read just after: (result, seconds, counts)."""
+    from repro_torch.core import pkmeans
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = pkmeans(x, init, mask, params, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return res, secs, read_counts()
+
+
+def phase_pkmeans(torch, report: dict, assign_rep: dict, update_rep: dict,
+                  main: dict) -> bool:
+    """The PKMeans baseline on [main]'s input and seeds: the full job on
+    ``twopass`` (assign kernel, then centroid-update kernel, every trip),
+    the paper's IPKMeans/PKMeans ratios against [main]'s ``batched`` job,
+    one trip's time beside its bound, ``twopass`` against ``fused`` for
+    PK_CHECK_ITERS iterations bit for bit, one fused one-lane step's time,
+    ``twopass`` against the plain ``eager`` engine on the first
+    PK_SMALL_N points (whole runs and trip by trip), and trip by trip on
+    the whole lane for PK_FULL_TRIPS trips, with one fused step."""
+    from repro_torch.core import KMeansParams
+    from repro_torch.kernels import engine as engines
+    dev = torch.device("cuda")
+    x, init = main["x"], main["init"]
+    params = KMeansParams(max_iters=MAX_ITERS, tol=TOL, backend="twopass",
+                          reseed_empty=True)
+    res, secs, counts = pkmeans_job(torch, x, init, params, dev)
+    iters = int(res.iters)
+    res_b = main["res_b"]
+    sse_ratio = float(res_b.sse) / float(res.sse)
+    time_ratio = main["secs_b"] / secs
+    print(f"[pkmeans] twopass: n={N} d={D} K={K} max_iters={MAX_ITERS} "
+          f"tol={TOL} reseed_empty=True: {secs:.3f} s, iterations {iters} "
+          f"(converged {bool(res.converged)}), launches {counts}; SSE "
+          f"{float(res.sse):.6e} (one-centroid SSE {main['one']:.6e})",
+          flush=True)
+    print(f"[pkmeans] IPKMeans (batched, {main['secs_b']:.3f} s, SSE "
+          f"{float(res_b.sse):.6e}) against PKMeans (twopass, {secs:.3f} s, "
+          f"SSE {float(res.sse):.6e}): SSE ratio {sse_ratio:.4f}, time "
+          f"ratio {time_ratio:.4f}", flush=True)
+
+    # one trip at the converged centroids, and its bound: the assign
+    # kernel's score product and the update's bytes
+    x1, c1 = x.unsqueeze(0), res.centroids.unsqueeze(0).contiguous()
+    twopass, fused_engine = (engines.get_engine(b) for b in
+                             ("twopass", "fused"))
+    trip_ms = cuda_time_ms(lambda: twopass.step(x1, c1), reps=3, warmup=1)
+    a_bound, a_by = bound_ms(2.0 * N * K * D, 4.0 * (N * D + K * D + 2 * N))
+    u_bound, u_by = bound_ms(0.0, 4.0 * (N * D + 2 * N + K * D + K))
+    fused_ms = cuda_time_ms(lambda: fused_engine.step(x1, c1), reps=1,
+                            warmup=1)
+    print(f"[pkmeans] one twopass trip {N}x{D}, k={K}: {trip_ms:.4f} ms "
+          f"against a bound of {a_bound:.4f} ms ({a_by}) + {u_bound:.4f} ms "
+          f"({u_by}); the job's {secs * 1e3 / max(iters, 1):.4f} ms a trip "
+          f"on the host clock (reseed passes and the final SSE included); "
+          f"one fused one-lane step {fused_ms:.4f} ms (one block "
+          f"accumulates the lane)", flush=True)
+
+    # twopass against fused: the same labels and sums, the same bits
+    short = params._replace(max_iters=PK_CHECK_ITERS)
+    res_t, _, counts_t = pkmeans_job(torch, x, init, short, dev)
+    res_f, secs_f, counts_f = pkmeans_job(
+        torch, x, init, short._replace(backend="fused"), dev)
+    same = (torch.equal(res_t.centroids, res_f.centroids)
+            and int(res_t.iters) == int(res_f.iters) == PK_CHECK_ITERS)
+    print(f"[pkmeans] {PK_CHECK_ITERS} iterations, twopass against fused "
+          f"({secs_f:.3f} s, launches {counts_f}): centroids bit-identical "
+          f"{same}", flush=True)
+
+    # twopass against the plain eager engine on a cut of the input: the
+    # whole runs, then trip by trip from the eager run's centroids
+    xs = x[:PK_SMALL_N].contiguous()
+    got, _, _ = pkmeans_job(torch, xs, init, params, dev)
+    want, _, _ = pkmeans_job(torch, xs, init,
+                             params._replace(backend="eager"), dev)
+    c_rel = float(torch.max(torch.abs(got.centroids - want.centroids)
+                            / torch.clamp(torch.abs(want.centroids),
+                                          min=1.0)))
+    s_rel = abs(float(got.sse) - float(want.sse)) / float(want.sse)
+    step_ok, parted = pkmeans_lockstep(torch, xs, init, int(want.iters))
+    small_ok = (int(got.iters) == int(want.iters) and s_rel <= PK_RTOL
+                and step_ok)
+    print(f"[pkmeans] n={PK_SMALL_N}: twopass against eager: iterations "
+          f"{int(got.iters)} and {int(want.iters)}, SSE rel {s_rel:.3g} "
+          f"(rtol {PK_RTOL}), centroids max rel {c_rel:.3g} after the "
+          f"runs part; trip by trip from the same centroids: {parted}",
+          flush=True)
+    # the kernels at the shape the path gives them: the whole lane, from
+    # the job's seeds, against the plain engine
+    del xs
+    full_ok, full = pkmeans_lockstep(torch, x, init, PK_FULL_TRIPS,
+                                     fused=True)
+    print(f"[pkmeans] n={N}: twopass against eager, trip by trip from the "
+          f"seeds: {full}", flush=True)
+
+    report.setdefault("launches_by_path", {})[
+        f"pkmeans fused, {PK_CHECK_ITERS} iterations"] = \
+        counts_f["fused_lloyd"]
+    assign_rep["launches_by_path"]["pkmeans twopass"] = counts["assign"]
+    update_rep["launches_by_path"] = {
+        "ipkmeans twopass": update_rep["launches"],
+        "pkmeans twopass": counts["centroid_update"]}
+    report["pkmeans_fused_step_ms"] = fused_ms
+    ok = (main["sane"](res) and same and small_ok and full_ok
+          and counts == counts_of(assign=counts["assign"],
+                                  centroid_update=iters)
+          and counts["assign"] >= iters > 0
+          and counts_t == counts_of(assign=counts_t["assign"],
+                                    centroid_update=PK_CHECK_ITERS)
+          and counts_f == counts_of(fused_lloyd=counts_t["assign"]))
+    if not ok:
+        print("[pkmeans] FAIL", flush=True)
+    return ok
+
+
+def near_ties(torch, x64, c, got, want, moved):
+    """Where two label vectors from the same centroids ``c`` differ, each
+    point must be a near-tie: its two distances (exact, in f64) within
+    TIE_REL of ||x||^2 + ||c||^2.  Marks the clusters such a label left or
+    joined in ``moved``; returns (ok, labels that differ, largest gap)."""
+    diff = got != want
+    if not bool(diff.any()):
+        return True, 0, 0.0
+    c64 = c.double()
+    xd, lg, lw = x64[diff], got[diff].long(), want[diff].long()
+    dg = torch.sum((xd - c64[lg]) ** 2, dim=-1)
+    dw = torch.sum((xd - c64[lw]) ** 2, dim=-1)
+    gap = torch.abs(dg - dw) / (torch.sum(xd * xd, dim=-1)
+                                + torch.sum(c64[lg] ** 2, dim=-1))
+    moved[lg] = True
+    moved[lw] = True
+    return bool((gap <= TIE_REL).all()), int(diff.sum()), float(gap.max())
+
+
+def rows_beyond(torch, got, want, moved):
+    """Centroid rows of ``got`` beyond PK_RTOL of ``want`` (relative to
+    max(|c|, 1)): (ok, their number); ok when each lies in a cluster that
+    ``moved`` marks."""
+    beyond = torch.any(torch.abs(got - want) > PK_RTOL * torch.clamp(
+        torch.abs(want), min=1.0), dim=-1)
+    return not bool((beyond & ~moved).any()), int(beyond.sum())
+
+
+def pkmeans_lockstep(torch, x, c, trips: int, fused: bool = False):
+    """``twopass`` against ``eager`` trip by trip on one lane, each trip
+    from the eager run's centroids (with its reseed): labels may differ
+    only at near-ties (``near_ties``), and the new centroids agree within
+    PK_RTOL except in the clusters such a label left or joined.  With
+    ``fused``, the first trip also holds one fused step (its labels, its
+    centroids after ``divide_or_keep``, its SSE within PK_RTOL) against
+    the eager step by the same rules.  Returns (ok, a summary)."""
+    from repro_torch.kernels import engine as engines
+    from repro_torch.kernels import ref
+    twopass, eager, fused_engine = (engines.get_engine(b) for b in
+                                    ("twopass", "eager", "fused"))
+    x1 = x.unsqueeze(0)
+    x64 = x.double()
+    kw = dict(max_iters=1, tol=TOL, reseed_empty=True)
+    ok, n_lab, n_trips, n_rows, worst = True, 0, 0, 0, 0.0
+    fused_note = ""
+    for trip in range(trips):
+        c1 = c.unsqueeze(0).contiguous()
+        lab_e = eager.assign(x1, c1)[0][0]
+        new_e = eager.lloyd_loop(x1, c, **kw)[0][0]
+        moved = torch.zeros(c.shape[0], dtype=torch.bool, device=c.device)
+        lab_ok, n, gap = near_ties(torch, x64, c,
+                                   twopass.assign(x1, c1)[0][0], lab_e,
+                                   moved)
+        rows_ok, beyond = rows_beyond(
+            torch, twopass.lloyd_loop(x1, c, **kw)[0][0], new_e, moved)
+        ok = ok and lab_ok and rows_ok
+        n_trips += n > 0
+        n_lab += n
+        n_rows += beyond
+        worst = max(worst, gap)
+        if fused and trip == 0:
+            sums_f, counts_f, sse_f = fused_engine.step(x1, c1)
+            sums_e, counts_e, sse_e = eager.step(x1, c1)
+            moved_f = torch.zeros_like(moved)
+            lab_ok, n_f, gap_f = near_ties(
+                torch, x64, c, fused_engine.assign(x1, c1)[0][0], lab_e,
+                moved_f)
+            rows_ok, beyond_f = rows_beyond(
+                torch, ref.divide_or_keep(sums_f, counts_f, c1)[0],
+                ref.divide_or_keep(sums_e, counts_e, c1)[0], moved_f)
+            sse_rel = abs(float(sse_f[0]) - float(sse_e[0])) / float(
+                sse_e[0])
+            f_ok = lab_ok and rows_ok and sse_rel <= PK_RTOL
+            ok = ok and f_ok
+            fused_note = (f"; one fused step against the eager step: "
+                          f"{n_f} labels differ (largest gap {gap_f:.3g}), "
+                          f"{beyond_f} centroid rows beyond rtol {PK_RTOL},"
+                          f" SSE rel {sse_rel:.3g}: {f_ok}")
+        c = new_e
+    return ok, (f"{n_trips} of {trips} trips see labels differ, {n_lab} "
+                f"labels in all, each a near-tie (largest gap {worst:.3g}, "
+                f"margin {TIE_REL}): {ok}; {n_rows} centroid rows beyond "
+                f"rtol {PK_RTOL}, all in clusters those labels moved"
+                f"{fused_note}")
+
+
+def timed(torch, fn):
+    """(result, seconds) of one synchronised call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_s1(torch, main: dict) -> bool:
+    """The S1 variants at the main input: the histogram builder against the
+    sort builder (the same region ids), the bucketed labeler, the sorted
+    pack against the scatter pack (bit for bit; n = M * capacity here), the
+    times of each, then ``ipkmeans`` on ``batched`` end to end with
+    ``s1="histogram", pack="sorted"``, ``partition="kd_random"`` and
+    ``partition="random"`` (draws from a seeded torch.Generator)."""
+    import dataclasses
+    from repro_torch.core import kdtree
+    dev = torch.device("cuda")
+    x, init = main["x"], main["init"]
+    cfg = main["config"]("batched")
+    depth = kdtree.required_depth(N, M)
+    cap = cfg.subset_capacity(N)
+    reg_s, t_sort = timed(torch, lambda: kdtree.build_kdtree(x, depth))
+    reg_h, t_hist = timed(torch,
+                          lambda: kdtree.build_kdtree_histogram(x, depth))
+    same_regions = torch.equal(reg_s, reg_h)
+    ids, t_lab = timed(torch, lambda: kdtree.label_regions(
+        x, reg_s, 2 ** depth, M))
+    ids_h, t_lab_h = timed(torch, lambda: kdtree.label_regions_histogram(
+        x, reg_s, 2 ** depth, M))
+    (sub_s, msk_s), t_scatter = timed(torch, lambda: kdtree.pack_subsets(
+        x, ids, M, cap))
+    (sub_o, msk_o), t_sorted = timed(
+        torch, lambda: kdtree.pack_subsets_sorted(x, ids, M, cap))
+    same_pack = torch.equal(sub_s, sub_o) and torch.equal(msk_s, msk_o)
+    balanced = torch.equal(torch.bincount(ids_h.long(), minlength=M),
+                           torch.full((M,), cap, device=dev))
+    del sub_s, msk_s, sub_o, msk_o
+    print(f"[s1] n={N} = M x capacity = {M} x {cap}, depth {depth}: sort "
+          f"builder {t_sort:.4f} s, histogram builder {t_hist:.4f} s, region"
+          f" ids equal {same_regions}; sort labeler {t_lab:.4f} s, bucketed "
+          f"labeler {t_lab_h:.4f} s (subsets of {cap} each: {balanced}); "
+          f"scatter pack {t_scatter:.4f} s, sorted pack {t_sorted:.4f} s, "
+          f"bit-identical {same_pack}", flush=True)
+    ok = same_regions and same_pack and balanced
+    for tag, change in (("histogram+sorted", dict(s1="histogram",
+                                                  pack="sorted")),
+                        ("kd_random", dict(partition="kd_random")),
+                        ("random", dict(partition="random"))):
+        cfg_v = dataclasses.replace(cfg, **change)
+
+        def gen():
+            return torch.Generator(device=dev).manual_seed(SEED)
+
+        res, secs, counts = run_path(torch, x, init, cfg_v, dev, gen())
+        st = stage_times(torch, x, init, cfg_v, dev, gen())
+        main["describe"](f"batched {tag}", res, secs, counts, st)
+        print(f"[s1] {tag}: SSE {float(res.sse):.6e}, "
+              f"{float(res.sse) / float(main['res_b'].sse):.4f} x the "
+              f"kd_axis/sort/scatter job's; S1 {st[0]:.4f} s against its "
+              f"{main['stages_b'][0]:.4f} s", flush=True)
+        ok = (ok and main["sane"](res)
+              and counts == counts_of(lloyd_solve_batched=1)
+              and torch.equal(st[5].iters, res.subset_iters))
+    if not ok:
+        print("[s1] FAIL", flush=True)
+    return ok
+
+
+def merge_sse_ratio(torch, x, final, best):
+    from repro_torch.core import metrics
+    return float(metrics.sse(x, final)) / float(metrics.sse(x, best))
+
+
+def phase_merge(torch, main: dict) -> bool:
+    """``hierarchical_merge`` of the first MERGE_LANES lanes' intermediate
+    centroids from [main]'s batched run, on the card (timed) and on the
+    CPU: the survivors bit for bit (the distances are summed in one fixed
+    order on every device), then the merged centroids' SSE on the main
+    input against min-ASSE's pick.  The port searches for the closest pair
+    by row minima; the reference's flat argmin is timed beside it on the
+    card, the two alternating, and must give the same bits."""
+    from repro_torch.core import merge
+    x, res_b = main["x"], main["res_b"]
+    inter = res_b.intermediate[:MERGE_LANES].reshape(-1, D).contiguous()
+    n = inter.shape[0]
+    got, t_card = timed(torch, lambda: merge.hierarchical_merge(inter, K))
+    t_rows, t_flat, same = [t_card], [], True
+    for _ in range(2):
+        flat, t = timed(torch, lambda: merge._merge(inter, K,
+                                                    merge._closest_flat))
+        t_flat.append(t)
+        same = same and torch.equal(got, flat)
+        if len(t_rows) < 2:
+            t_rows.append(timed(torch, lambda: merge.hierarchical_merge(
+                inter, K))[1])
+    t0 = time.perf_counter()
+    want = merge.hierarchical_merge(inter.cpu(), K)
+    t_cpu = time.perf_counter() - t0
+    same = same and torch.equal(got.cpu(), want)
+    best = merge.min_asse_merge(res_b.intermediate[:MERGE_LANES],
+                                res_b.asses[:MERGE_LANES])
+    ratio = merge_sse_ratio(torch, x, got, best)
+    ratio_all = merge_sse_ratio(torch, x, got, res_b.centroids)
+    print(f"[merge] hierarchical_merge of {MERGE_LANES} lanes' centroids, "
+          f"N={n} d={D} -> K={K} ({n - K} steps, a {n * n * 4 / 1e6:.0f} MB "
+          f"matrix): card {t_card:.4f} s by row minima; alternating, "
+          f"row minima {', '.join(f'{t:.4f}' for t in t_rows)} s, flat "
+          f"argmin {', '.join(f'{t:.4f}' for t in t_flat)} s; CPU "
+          f"{t_cpu:.3f} s (the check's own cost); survivors bit-identical "
+          f"{same}; SSE on the main input {ratio:.4f} x "
+          f"min-ASSE's pick among the same lanes, {ratio_all:.4f} x the "
+          f"main job's", flush=True)
+    ok = same and bool(torch.isfinite(got).all()) and tuple(got.shape) == (
+        K, D)
+    if not ok:
+        print("[merge] FAIL", flush=True)
+    return ok
+
+
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -1587,10 +1948,16 @@ def main() -> int:
         return fail("k-means|| seeding")
     if not phase_twopass(torch, update_rep, assign_rep, main_run):
         return fail("twopass engine on the main path")
+    if not phase_pkmeans(torch, report, assign_rep, update_rep, main_run):
+        return fail("PKMeans baseline")
+    if not phase_s1(torch, main_run):
+        return fail("S1 variants")
+    if not phase_merge(torch, main_run):
+        return fail("hierarchical merge")
     reports = (report, batched, res_rep, assign_rep, update_rep, init_rep)
     kernels = [{key: r[key] for key in KEYS + ("launches_by_path",)
                 if key in r} for r in reports]
-    for r in (batched, res_rep, update_rep):
+    for r in (report, batched, res_rep, update_rep):
         extra = {key: r[key] for key in r if key not in KEYS}
         print(json.dumps({r["name"]: extra}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

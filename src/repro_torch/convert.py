@@ -36,7 +36,10 @@ def params_from_reference(d: Mapping) -> KMeansParams:
 
 
 def config_from_reference(d: Mapping) -> IPKMeansConfig:
-    """The reference's ``IPKMeansConfig`` as a dict -> the port's."""
+    """The reference's ``IPKMeansConfig`` as a dict -> the port's.  Every
+    value of its single-process path carries across as it is (``partition``,
+    ``s1``, ``pack``, ``merge``, ``reduce``); the engine names map through
+    ``BACKEND_NAMES``."""
     names = {f.name for f in dataclasses.fields(IPKMeansConfig)}
     unknown = set(d) - names
     if unknown:

@@ -2,23 +2,28 @@
 single-process ``repro.core.ipkmeans.ipkmeans``.
 
 Three stages (Section 2):
-  S1  partition_dataset : k-d tree median splits + labeling, then a scatter
-      pack into an (M, S, d) stack plus mask
+  S1  partition_dataset : k-d tree median splits + labeling (or a random
+      partition), then a pack into an (M, S, d) stack plus mask
   S2  per-subset k-means: M independent Lloyd solves to convergence, the
       whole stack in one launch of the whole-solve kernel
       (``backend="batched"``, the reference's main configuration), or one
       launch per Lloyd trip (``backend="fused"``)
-  S3  merge             : min-ASSE selection, then the SSE over the dataset
+  S3  merge             : min-ASSE selection or hierarchical midpoint
+      merging, then the SSE over the dataset
 
 Before S1, with ``init`` other than ``"given"``, the shared seeds are drawn
-from the whole dataset (``core/init.py``).  The port covers
-``partition="kd_axis"``, ``s1`` ``"auto"``/``"sort"``, ``pack="scatter"``,
-``merge="min_asse"`` and every ``init``; every other value raises
-``NotImplementedError`` naming the slice that brings it.
+from the whole dataset (``core/init.py``).  The port takes every value of
+the reference's single-process configuration: ``partition`` ``"kd_axis"`` |
+``"kd_random"`` | ``"random"``, ``s1`` ``"auto"`` | ``"sort"`` |
+``"histogram"``, ``pack`` ``"scatter"`` | ``"sorted"`` | ``"a2a"`` (which
+needs a device mesh, so it warns and scatters, as the reference's
+single-process path does), ``merge`` ``"min_asse"`` | ``"hierarchical"``, and
+every ``init``.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -31,22 +36,25 @@ from repro_torch.device import as_f32, resolve_device
 
 REDUCE_MODES = ("exact", "int8ef")
 S1_MODES = ("auto", "sort", "histogram")
+PARTITIONS = ("kd_axis", "kd_random", "random")
+PACKS = ("scatter", "sorted", "a2a")
+MERGES = ("min_asse", "hierarchical")
 
 
 @dataclasses.dataclass(frozen=True)
 class IPKMeansConfig:
     num_clusters: int                       # K — final clusters wanted
     num_subsets: int                        # M — parallel "reducers"
-    partition: str = "kd_axis"              # 'kd_axis' (later: 'kd_random',
-                                            # 'random')
-    merge: str = "min_asse"                 # 'min_asse' (later:
-                                            # 'hierarchical')
-    pack: str = "scatter"                   # 'scatter' (later: 'sorted',
-                                            # 'a2a')
+    partition: str = "kd_axis"              # 'kd_axis' | 'kd_random' | 'random'
+    merge: str = "min_asse"                 # 'min_asse' | 'hierarchical'
+    pack: str = "scatter"                   # 'scatter' | 'sorted' | 'a2a'
+                                            # (a2a needs a mesh: it warns
+                                            # and scatters here)
     reduce: str = "exact"                   # cross-pod reduction; the
                                             # single-process path has none
-    s1: str = "auto"                        # 'auto' | 'sort' (later:
-                                            # 'histogram')
+    s1: str = "auto"                        # 'auto' | 'sort' | 'histogram':
+                                            # tree build + labeling ('auto'
+                                            # is 'sort' on one process)
     leaf_capacity: int | None = None        # default: num_subsets (paper)
     label_axis: int = 0
     kmeans: KMeansParams = KMeansParams()
@@ -102,24 +110,13 @@ class IPKMeansResult(NamedTuple):
 
 
 def check_config(cfg: IPKMeansConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not cover."""
-    later = "a later slice of the port"
-    if cfg.partition != "kd_axis":
-        raise NotImplementedError(
-            f"partition={cfg.partition!r} comes in {later} (random keys "
-            f"from a torch.Generator)")
-    if cfg.s1 == "histogram":
-        raise NotImplementedError(
-            f"s1='histogram' comes in {later} (the histogram S1)")
-    if cfg.pack not in ("scatter", "sorted", "a2a"):
-        raise ValueError(f"unknown pack: {cfg.pack!r} "
-                         f"(expected 'scatter' | 'sorted' | 'a2a')")
-    if cfg.pack != "scatter":
-        raise NotImplementedError(f"pack={cfg.pack!r} comes in {later}")
-    if cfg.merge == "hierarchical":
-        raise NotImplementedError(f"merge='hierarchical' comes in {later}")
-    if cfg.merge != "min_asse":
-        raise ValueError(f"unknown merge: {cfg.merge}")
+    """Raise ``ValueError`` for a value the reference does not know."""
+    for what, v, known in (("partition", cfg.partition, PARTITIONS),
+                           ("pack", cfg.pack, PACKS),
+                           ("merge", cfg.merge, MERGES)):
+        if v not in known:
+            raise ValueError(f"unknown {what}: {v!r} (expected one of "
+                             f"{known})")
     check_params(cfg.kmeans)
 
 
@@ -134,20 +131,46 @@ def _check_pack_complete(n: int, masks: torch.Tensor, pack: str) -> None:
             "skew")
 
 
-def _partition_and_pack(points: torch.Tensor, cfg: IPKMeansConfig):
-    """S1: partition, then scatter each subset into its reducer's row."""
+def _partition_and_pack(points: torch.Tensor, cfg: IPKMeansConfig, *,
+                        draws=None, generator: torch.Generator | None = None):
+    """S1: partition, then route each subset to its reducer's row.
+
+    ``cfg.s1`` ``"histogram"`` runs the sort-free tree build and the
+    bucketed labeler; ``"auto"`` is ``"sort"`` on one process.  The random
+    partitions consume ``draws`` or draw from ``generator``
+    (``kdtree.partition_dataset``).  ``cfg.pack``: ``"sorted"`` (one sort
+    and a reshape) when every subset holds exactly ``capacity`` points
+    (``n == M * capacity``), else ``"scatter"``; ``"a2a"`` needs a device
+    mesh, so it warns and scatters.
+    """
+    s1 = "sort" if cfg.s1 == "auto" else cfg.s1
     part = kdtree.partition_dataset(
         points, cfg.num_subsets, leaf_capacity=cfg.leaf_capacity,
-        strategy=cfg.partition, label_axis=cfg.label_axis)
+        strategy=cfg.partition, label_axis=cfg.label_axis, builder=s1,
+        labeler=s1, draws=draws, generator=generator)
     n = points.shape[0]
-    subsets, masks = kdtree.pack_subsets(
-        points, part.subset_ids, cfg.num_subsets, cfg.subset_capacity(n))
+    capacity = cfg.subset_capacity(n)
+    if cfg.pack == "sorted" and n == cfg.num_subsets * capacity:
+        subsets, masks = kdtree.pack_subsets_sorted(
+            points, part.subset_ids, cfg.num_subsets, capacity)
+    else:
+        if cfg.pack == "a2a":
+            warnings.warn(
+                "pack='a2a' needs a device mesh; using the scatter pack "
+                "instead", RuntimeWarning, stacklevel=3)
+        subsets, masks = kdtree.pack_subsets(
+            points, part.subset_ids, cfg.num_subsets, capacity)
     _check_pack_complete(n, masks, cfg.pack)
     return part, subsets, masks
 
 
-def _merge_stage(points: torch.Tensor, res: KMeansResult):
-    final = merge.min_asse_merge(res.centroids, res.asse)
+def _merge_stage(points: torch.Tensor, res: KMeansResult,
+                 cfg: IPKMeansConfig):
+    m, k, d = res.centroids.shape
+    if cfg.merge == "hierarchical":
+        final = merge.hierarchical_merge(res.centroids.reshape(m * k, d), k)
+    else:
+        final = merge.min_asse_merge(res.centroids, res.asse)
     return final, metrics.sse(points, final)
 
 
@@ -168,28 +191,34 @@ def _resolve_init_stage(points: torch.Tensor, init_centroids,
 
 
 def ipkmeans(points, init_centroids, cfg: IPKMeansConfig, *, draws=None,
-             generator: torch.Generator | None = None,
+             partition_draws=None, generator: torch.Generator | None = None,
              device=None) -> IPKMeansResult:
     """Single-process IPKMeans: ``points (n, d)``, the shared seeds
     ``init_centroids (K, d)`` every reducer starts from, and ``cfg``.
 
     With ``cfg.init`` other than ``"given"`` the seeds are drawn from the
     whole dataset before S1, from ``draws`` or ``generator``
-    (``core/init.py``), and ``init_centroids`` may be ``None``.  Runs on
-    ``device`` (default: CUDA, raising without a card).  Each stage is also
-    reachable alone (``_resolve_init_stage``, ``_partition_and_pack``,
-    ``kmeans_batched``, ``_merge_stage``), which is how ``chip_smoke.py``
-    times them.
+    (``core/init.py``), and ``init_centroids`` may be ``None``.
+    ``partition="kd_random"`` takes ``partition_draws`` as ``(n,)`` f32
+    uniforms and ``"random"`` as an ``(n,)`` int64 permutation (the
+    reference draws them with ``jax.random.uniform(key, (n,))`` and
+    ``jax.random.permutation(key, n)`` from the key it partitions with);
+    without them they come from ``generator``, after the seeding's draws.
+    Runs on ``device`` (default: CUDA, raising without a card).  Each stage
+    is also reachable alone (``_resolve_init_stage``,
+    ``_partition_and_pack``, ``kmeans_batched``, ``_merge_stage``), which is
+    how ``chip_smoke.py`` times them.
     """
     check_config(cfg)
     dev = resolve_device(device)
     x = as_f32(points, dev)
     init_centroids, cfg = _resolve_init_stage(x, init_centroids, cfg, draws,
                                               generator)
-    part, subsets, masks = _partition_and_pack(x, cfg)
+    part, subsets, masks = _partition_and_pack(
+        x, cfg, draws=partition_draws, generator=generator)
     res = kmeans_batched(subsets, masks, init_centroids, cfg.kmeans,
                          device=dev)
-    final, total_sse = _merge_stage(x, res)
+    final, total_sse = _merge_stage(x, res, cfg)
     return IPKMeansResult(centroids=final, sse=total_sse,
                           intermediate=res.centroids, asses=res.asse,
                           subset_iters=res.iters, kd_depth=part.depth)

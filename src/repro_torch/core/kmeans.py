@@ -21,6 +21,7 @@ from repro_torch.core import metrics
 from repro_torch.core.init import INIT_METHODS, resolve_init
 from repro_torch.device import as_f32, resolve_device
 from repro_torch.kernels import engine as engines
+from repro_torch.kernels import ref
 
 
 class KMeansParams(NamedTuple):
@@ -58,6 +59,25 @@ def _asse(total_sse: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
     # empty shards must never win the min-ASSE merge: ASSE = +inf
     return torch.where(cnt > 0.0, total_sse / torch.clamp(cnt, min=1.0),
                        torch.inf)
+
+
+def lloyd_step(points, centroids, mask=None, backend: str = "eager", *,
+               device=None):
+    """One Lloyd iteration: assign + update -> ``(new_centroids (k,d), sse
+    ())``.
+
+    ``points (n, d)``, ``centroids (k, d)``, optional ``mask (n,)``: one
+    ``engine.step`` on a stack of one lane, then ``divide_or_keep`` (an
+    empty cluster keeps its centroid).  Runs on ``device`` (default: CUDA,
+    raising without a card).
+    """
+    engine = engines.get_engine(backend)
+    dev = resolve_device(device)
+    x = as_f32(points, dev)
+    c = as_f32(centroids, dev)
+    w = None if mask is None else as_f32(mask, dev).unsqueeze(0)
+    sums, counts, shard_sse = engine.step(x.unsqueeze(0), c.unsqueeze(0), w)
+    return ref.divide_or_keep(sums[0], counts[0], c), shard_sse[0]
 
 
 def _init_backend(backend: str) -> str:

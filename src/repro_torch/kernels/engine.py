@@ -145,19 +145,33 @@ class LloydEngine:
         """A stack of solves: (M,S,d),(k,d)[,(M,S)] -> (centroids (M,k,d),
         sse (M,), iters (M,) i32, converged (M,) bool).
 
+        The host loop ``lloyd_loop``, then one more pass per lane for the
+        SSE.  ``prune`` is validated only: a host loop has no block state to
+        skip, and the exact loop IS the pruned result.
+        """
+        check_prune(prune)
+        c, iters, shift = self.lloyd_loop(
+            subsets, init_centroids, weights, max_iters=max_iters, tol=tol,
+            reseed_empty=reseed_empty)
+        return c, self.sse(subsets, c, weights), iters, shift <= tol
+
+    def lloyd_loop(self, subsets, init_centroids, weights=None, *,
+                   max_iters: int, tol: float, reseed_empty: bool = False):
+        """Lloyd trips of ``step`` to convergence: (M,S,d),(k,d) or
+        (M,k,d)[,(M,S)] -> (centroids (M,k,d), iters (M,) i32, last shift
+        (M,)).
+
         The reference vmaps a ``lax.while_loop``; a lane there keeps its
         state once ``not (it < max_iters and shift > tol)``.  Here each trip
         of a host loop runs one batched ``step`` over the lanes still
         active, ``divide_or_keep``, the reseed of lanes with an empty
         cluster, and the per-lane ``centroid_shift``; frozen lanes are not
         touched again, so they keep their centroids and ``iters`` exactly.
-        One host sync per trip (the active-lane list).  After the loop one
-        more pass per lane gives the SSE.  ``prune`` is validated only: a
-        host loop has no block state to skip, and the exact loop IS the
-        pruned result.
+        One host sync per trip (the active-lane list).  It always steps,
+        so on ``resident`` and ``batched`` it drives the fused ``step``:
+        this is their fallback loop and PKMeans's loop (a stack of one).
         """
         from repro_torch.core.metrics import centroid_shift
-        check_prune(prune)
         m = subsets.shape[0]
         dev = subsets.device
         k, d = init_centroids.shape[-2:]
@@ -180,8 +194,7 @@ class LloydEngine:
                                       lanes)
             shift[sel] = centroid_shift(c[sel], old)
             iters[sel] += 1
-        total = self.sse(subsets, c, weights)
-        return c, total, iters, shift <= tol
+        return c, iters, shift
 
 
 class EagerEngine(LloydEngine):

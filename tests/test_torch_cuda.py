@@ -421,3 +421,54 @@ def test_twopass_step_sums_are_fused_bit_for_bit(card):
     one = engine.get_engine("fused").step(x, c, w, lanes)
     assert torch.equal(two[0], one[0]) and torch.equal(two[1], one[1])
     torch.testing.assert_close(two[2], one[2], rtol=1e-5, atol=0.0)
+
+
+def test_pkmeans_twopass_is_fused_bit_for_bit(card):
+    """PKMeans's one lane on ``twopass`` (assign kernel, then the update
+    kernel) and on ``fused``: the same labels and sums, so the same
+    centroids and iterations bit for bit; the SSE is ``metrics.sse`` of the
+    same centroids in both."""
+    from repro_torch.core.pkmeans import pkmeans
+    g = torch.Generator().manual_seed(7)
+    x = (torch.randn((20000, 16), generator=g) * 3.0).to(card)
+    c0 = x[:40].clone()
+    c0[5] = 1e3                               # empty: the reseed moves it
+    mask = (torch.rand(20000, generator=g) > 0.1).to(card)
+    out = {}
+    for backend in ("twopass", "fused"):
+        before = (assign.launches, centroid_update.launches, fused.launches)
+        out[backend] = pkmeans(x, c0, mask, KMeansParams(
+            max_iters=6, reseed_empty=True, backend=backend), device=card)
+        after = (assign.launches, centroid_update.launches, fused.launches)
+        launched = [b - a for a, b in zip(before, after)]
+        if backend == "twopass":
+            assert launched[0] > 0 and launched[1] > 0 and launched[2] == 0
+        else:
+            assert launched[0] == launched[1] == 0 and launched[2] > 0
+    a, b = out["twopass"], out["fused"]
+    assert int(a.iters) == int(b.iters) == 6
+    assert torch.equal(a.centroids, b.centroids)
+    assert torch.equal(a.sse, b.sse)
+
+
+def test_histogram_builder_on_card_matches_cpu(card):
+    from repro_torch.core import kdtree
+    g = torch.Generator().manual_seed(3)
+    x = torch.round(torch.randn((5000, 3), generator=g) * 2.0)
+    x[::3, 0] = -0.0                          # signed zeros and duplicates
+    x[1::5, 0] = 0.0
+    want = kdtree.build_kdtree_histogram(x, 6)
+    got = kdtree.build_kdtree_histogram(x.to(card), 6)
+    assert torch.equal(got.cpu(), want)
+    ids = kdtree.label_regions_histogram(x, want, 64, 8)
+    assert torch.equal(kdtree.label_regions_histogram(
+        x.to(card), got, 64, 8).cpu(), ids)
+
+
+def test_hierarchical_merge_on_card_matches_cpu(card):
+    from repro_torch.core import merge
+    g = torch.Generator().manual_seed(4)
+    c = torch.randn((64, 8), generator=g) * 3.0
+    want = merge.hierarchical_merge(c, 8)
+    got = merge.hierarchical_merge(c.to(card), 8)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0.0)

@@ -12,6 +12,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import jax
@@ -100,12 +101,30 @@ def test_eager_backend_matches_reference_jnp():
     (dict(kmeans=JParams(backend="tuned")), "tuned"),
 ])
 def test_unported_configs_raise(change, match):
+    """Only what the port still lacks raises ``NotImplementedError`` naming
+    it (the ``tuned`` engine).  The reference's single-process S1 and S3
+    variants, which earlier slices refused, now run (held against the
+    reference in ``tests/test_torch_s1.py``); ``pack="a2a"`` warns and
+    scatters, as the reference's single-process path does."""
     jcfg = dataclasses.replace(JConfig(num_clusters=4, num_subsets=2),
                                **change)
     cfg = convert.config_from_reference(_as_dict(jcfg))
-    x = np.zeros((32, 2), np.float32)
-    with pytest.raises(NotImplementedError, match=match):
-        ipkmeans(x, x[:4], cfg, device="cpu")
+    x = np.random.default_rng(0).normal(size=(32, 2)).astype(np.float32)
+    if cfg.kmeans.backend == "tuned":
+        with pytest.raises(NotImplementedError, match=match):
+            ipkmeans(x, x[:4], cfg, device="cpu")
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = ipkmeans(x, x[:4], cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, RuntimeWarning)]
+    assert len(warned) == (cfg.pack == "a2a")
+    assert all(match in msg for msg in warned)
+    assert tuple(got.centroids.shape) == (4, 2)
+    assert bool(torch.isfinite(got.sse))
+    assert int(got.subset_iters.min()) >= 1
 
 
 def test_config_round_trip_keeps_every_field():
@@ -144,7 +163,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.core.init, repro_torch.convert, "
             "repro_torch.kernels.engine, repro_torch.kernels.ops, "
             "repro_torch.kernels.assign, repro_torch.kernels.centroid_update, "
-            "repro_torch.kernels.init\n"
+            "repro_torch.kernels.init, repro_torch.core.pkmeans, "
+            "repro_torch.core.merge, repro_torch.core.kdtree\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

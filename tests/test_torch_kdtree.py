@@ -70,10 +70,12 @@ def test_partition_dataset_matches_reference(n, m, cap):
 
 
 def test_unported_s1_variants_raise():
+    """The random strategies run from draws or a torch.Generator
+    (``tests/test_torch_s1.py``) and refuse to run with neither."""
     x = torch.zeros((16, 2))
     for strategy in ("random", "kd_random"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(ValueError, match="Generator"):
             kdtree.partition_dataset(x, 4, strategy=strategy)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="Generator"):
         kdtree.label_regions(x, torch.zeros(16, dtype=torch.int32), 1, 4,
                              strategy="random")
