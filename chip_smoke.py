@@ -61,11 +61,16 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      [main]'s input and seeds, on ``backend="twopass"`` (the assign and
      centroid-update kernels every trip): iterations, wall time, launches,
      SSE, and the IPKMeans/PKMeans ratios of SSE and time against [main]'s
-     batched job (printed, not gated); one trip's time beside its bound and
-     one fused one-lane step's; ``twopass`` and ``fused`` bit-identical for
-     3 iterations; ``twopass`` against the plain ``eager`` engine on the
-     first 2**18 points, and trip by trip for 2 trips on the whole lane,
-     with one fused step against the eager step there;
+     batched job (printed, not gated); one trip's time beside its bound;
+     one fused one-lane step's beside its bound and the library yardstick
+     (row-chunked), with each kernel's device time (torch.profiler);
+     ``twopass`` and ``fused`` bit-identical for 3 iterations; ``twopass``
+     against the plain ``eager`` engine on the first 2**18 points, and trip
+     by trip for 2 trips on the whole lane, with one fused step against the
+     eager step there; then whole jobs on ``fused`` and ``batched`` (the
+     fused kernel every trip) with the ``twopass`` job's settings, their
+     times, launches, and centroids, iterations and SSE bit for bit the
+     ``twopass`` job's;
  13. [s1]: at the main input, the histogram builder's region ids against
      the sort builder's, the bucketed labeler, the sorted pack against the
      scatter pack bit for bit, their times; ``ipkmeans`` on ``batched``
@@ -280,29 +285,36 @@ def mixture(gen, n: int, d: int, k: int, device):
     return centers[comp] + torch.randn((n, d), generator=gen, device=device)
 
 
-def library_step(x, c, w, lanes_per_chunk: int = 32):
+def library_step(x, c, w, elems: int = 1 << 29):
     """Yardstick for one fused step from PyTorch library calls: matmul
-    scores, argmin, index_add_, over chunks of lanes so the (lanes, S, k)
-    scores stay near 2 GB.  Timed here only; the port never calls it."""
+    scores, argmin, index_add_, over chunks of lanes and of rows so that
+    the (lanes, rows, k) scores stay near 2 GB (``elems`` f32: 32 lanes of
+    the main stack, 2**19 rows of one 2**23-row lane).  Timed here only;
+    the port never calls it."""
     import torch
-    out = []
-    for lo in range(0, x.shape[0], lanes_per_chunk):
-        xs, cs, ws = (t[lo:lo + lanes_per_chunk] for t in (x, c, w))
-        n_l, s, d = xs.shape
-        k = cs.shape[1]
-        cn = torch.sum(cs * cs, dim=-1)
-        scores = cn.unsqueeze(1) - 2.0 * torch.bmm(xs, cs.transpose(1, 2))
-        best, labels = torch.min(scores, dim=-1)
-        mind = torch.clamp(best + torch.sum(xs * xs, dim=-1), min=0.0)
-        flat = (labels + k * torch.arange(n_l, device=x.device).unsqueeze(1)
-                ).flatten()
-        sums = torch.zeros((n_l * k, d), device=x.device).index_add_(
-            0, flat, (xs * ws.unsqueeze(-1)).reshape(-1, d))
-        counts = torch.zeros(n_l * k, device=x.device).index_add_(
-            0, flat, ws.flatten())
-        out.append((sums.view(n_l, k, d), counts.view(n_l, k),
-                    torch.sum(ws * mind, dim=-1)))
-    return [torch.cat(parts) for parts in zip(*out)]
+    n_l, s, d = x.shape
+    k = c.shape[1]
+    lanes_per = max(1, elems // (s * k))
+    rows = min(s, max(1, elems // (lanes_per * k)))
+    sums = torch.zeros((n_l * k, d), device=x.device)
+    counts = torch.zeros(n_l * k, device=x.device)
+    sse = torch.zeros(n_l, device=x.device)
+    cn = torch.sum(c * c, dim=-1)
+    for lo in range(0, n_l, lanes_per):
+        hi = min(lo + lanes_per, n_l)
+        cs = c[lo:hi]
+        base = k * torch.arange(lo, hi, device=x.device).unsqueeze(1)
+        for r0 in range(0, s, rows):
+            xs, ws = x[lo:hi, r0:r0 + rows], w[lo:hi, r0:r0 + rows]
+            scores = cn[lo:hi].unsqueeze(1) - 2.0 * torch.bmm(
+                xs, cs.transpose(1, 2))
+            best, labels = torch.min(scores, dim=-1)
+            mind = torch.clamp(best + torch.sum(xs * xs, dim=-1), min=0.0)
+            flat = (labels + base).flatten()
+            sums.index_add_(0, flat, (xs * ws.unsqueeze(-1)).reshape(-1, d))
+            counts.index_add_(0, flat, ws.flatten())
+            sse[lo:hi] += torch.sum(ws * mind, dim=-1)
+    return sums.view(n_l, k, d), counts.view(n_l, k), sse
 
 
 def time_step(tag, x, c, w, reps: int) -> dict:
@@ -706,6 +718,7 @@ def phase_main(torch, report: dict, solve_report: dict):
     import numpy as np
     from repro_torch.core import IPKMeansConfig, KMeansParams
     from repro_torch.kernels import batch_resident as br
+    from repro_torch.kernels import fused
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -910,9 +923,14 @@ def phase_main(torch, report: dict, solve_report: dict):
         return None
 
     # one step of the fused pass over the whole stack at its converged
-    # centroids: the shape of the first slice's launches
-    report.update(time_step("stack", subsets, res_f.intermediate.contiguous(),
-                            masks, reps=3))
+    # centroids: the shape of the first slice's launches, and each pass's
+    # device time
+    cents = res_f.intermediate.contiguous()
+    report.update(time_step("stack", subsets, cents, masks, reps=3))
+    report["stack_passes"] = pass_times(
+        torch, lambda: fused.fused_lloyd(subsets, cents, masks))
+    print(f"[stack] device ms a call by kernel (torch.profiler): "
+          f"{json.dumps(report['stack_passes'])}", flush=True)
     return dict(x=x, init=init, subsets=subsets, masks=masks, res_f=res_f,
                 res_b=res_b, counts_f=counts_f, s2_fused=st_f[1],
                 secs_b=secs_b, stages_b=st_b[:3], one=one, config=config,
@@ -1573,11 +1591,13 @@ def phase_pkmeans(torch, report: dict, assign_rep: dict, update_rep: dict,
     """The PKMeans baseline on [main]'s input and seeds: the full job on
     ``twopass`` (assign kernel, then centroid-update kernel, every trip),
     the paper's IPKMeans/PKMeans ratios against [main]'s ``batched`` job,
-    one trip's time beside its bound, ``twopass`` against ``fused`` for
-    PK_CHECK_ITERS iterations bit for bit, one fused one-lane step's time,
-    ``twopass`` against the plain ``eager`` engine on the first
-    PK_SMALL_N points (whole runs and trip by trip), and trip by trip on
-    the whole lane for PK_FULL_TRIPS trips, with one fused step."""
+    one trip's time beside its bound, one fused one-lane step's time
+    beside its bound and the library yardstick (and its passes' device
+    times), ``twopass`` against ``fused`` for PK_CHECK_ITERS iterations bit
+    for bit, ``twopass`` against the plain ``eager`` engine on the first
+    PK_SMALL_N points (whole runs and trip by trip), trip by trip on the
+    whole lane for PK_FULL_TRIPS trips, with one fused step, and whole
+    jobs on ``fused`` and ``batched`` bit for bit the ``twopass`` job."""
     from repro_torch.core import KMeansParams
     from repro_torch.kernels import engine as engines
     dev = torch.device("cuda")
@@ -1607,14 +1627,26 @@ def phase_pkmeans(torch, report: dict, assign_rep: dict, update_rep: dict,
     trip_ms = cuda_time_ms(lambda: twopass.step(x1, c1), reps=3, warmup=1)
     a_bound, a_by = bound_ms(2.0 * N * K * D, 4.0 * (N * D + K * D + 2 * N))
     u_bound, u_by = bound_ms(0.0, 4.0 * (N * D + 2 * N + K * D + K))
-    fused_ms = cuda_time_ms(lambda: fused_engine.step(x1, c1), reps=1,
-                            warmup=1)
     print(f"[pkmeans] one twopass trip {N}x{D}, k={K}: {trip_ms:.4f} ms "
           f"against a bound of {a_bound:.4f} ms ({a_by}) + {u_bound:.4f} ms "
           f"({u_by}); the job's {secs * 1e3 / max(iters, 1):.4f} ms a trip "
-          f"on the host clock (reseed passes and the final SSE included); "
-          f"one fused one-lane step {fused_ms:.4f} ms (one block "
-          f"accumulates the lane)", flush=True)
+          f"on the host clock (reseed passes and the final SSE included)",
+          flush=True)
+
+    # one fused step on the one lane: its time beside its bound and the
+    # library yardstick, and each pass's device time
+    w1 = torch.ones((1, N), device=dev)
+    fused_ms = cuda_time_ms(lambda: fused_engine.step(x1, c1), reps=5,
+                            warmup=1)
+    lane_lib_ms = cuda_time_ms(lambda: library_step(x1, c1, w1), reps=2,
+                               warmup=1)
+    lane_bound, lane_by = step_bound_ms(1, N, D, K)
+    lane_passes = pass_times(torch, lambda: fused_engine.step(x1, c1))
+    print(f"[pkmeans] one fused one-lane step {N}x{D}, k={K}: "
+          f"{fused_ms:.4f} ms, library yardstick {lane_lib_ms:.4f} ms, bound "
+          f"{lane_bound:.4f} ms ({lane_by}); device ms a call by kernel "
+          f"(torch.profiler): {json.dumps(lane_passes)}", flush=True)
+    del w1
 
     # twopass against fused: the same labels and sums, the same bits
     short = params._replace(max_iters=PK_CHECK_ITERS)
@@ -1653,15 +1685,36 @@ def phase_pkmeans(torch, report: dict, assign_rep: dict, update_rep: dict,
     print(f"[pkmeans] n={N}: twopass against eager, trip by trip from the "
           f"seeds: {full}", flush=True)
 
-    report.setdefault("launches_by_path", {})[
-        f"pkmeans fused, {PK_CHECK_ITERS} iterations"] = \
+    # whole jobs on the fused kernel, with the twopass job's settings: the
+    # same labels and sums every trip, so the same centroids, iterations
+    # and SSE bit for bit
+    jobs_ok = True
+    paths = report.setdefault("launches_by_path", {})
+    for backend in ("fused", "batched"):
+        res_j, secs_j, counts_j = pkmeans_job(
+            torch, x, init, params._replace(backend=backend), dev)
+        same_j = (torch.equal(res_j.centroids, res.centroids)
+                  and int(res_j.iters) == iters
+                  and torch.equal(res_j.sse, res.sse))
+        print(f"[pkmeans] whole job on {backend}: {secs_j:.3f} s (twopass "
+              f"{secs:.3f} s), iterations {int(res_j.iters)}, launches "
+              f"{counts_j}; centroids, iterations and SSE bit-identical to "
+              f"the twopass job's: {same_j}", flush=True)
+        jobs_ok = (jobs_ok and same_j
+                   and counts_j == counts_of(fused_lloyd=counts["assign"]))
+        paths[f"pkmeans {backend}"] = counts_j["fused_lloyd"]
+        report[f"pkmeans_{backend}_job_s"] = secs_j
+
+    paths[f"pkmeans fused, {PK_CHECK_ITERS} iterations"] = \
         counts_f["fused_lloyd"]
     assign_rep["launches_by_path"]["pkmeans twopass"] = counts["assign"]
     update_rep["launches_by_path"] = {
         "ipkmeans twopass": update_rep["launches"],
         "pkmeans twopass": counts["centroid_update"]}
-    report["pkmeans_fused_step_ms"] = fused_ms
-    ok = (main["sane"](res) and same and small_ok and full_ok
+    report.update(pkmeans_fused_step_ms=fused_ms,
+                  one_lane_library_ms=lane_lib_ms,
+                  one_lane_bound_ms=lane_bound, one_lane_passes=lane_passes)
+    ok = (main["sane"](res) and same and small_ok and full_ok and jobs_ok
           and counts == counts_of(assign=counts["assign"],
                                   centroid_update=iters)
           and counts["assign"] >= iters > 0

@@ -3,12 +3,12 @@ counterpart of the single-process ``repro.core.pkmeans.pkmeans``.
 
 One Lloyd iteration is one MapReduce job: mappers assign points, at most K
 reducers average.  Here the whole dataset is one lane, and every iteration
-is one ``engine.step`` over it.  On the card the path is
-``backend="twopass"``: the assign kernel, then the centroid-update kernel,
-which spreads one lane's sort and sums over the whole card.  The fused
-kernel accumulates a lane in one block, so ``fused``, ``resident`` and
-``batched`` (which always step here, as in the reference) run a one-lane
-step's reduction on one SM.
+is one ``engine.step`` over it.  On the card ``backend="twopass"`` runs the
+assign kernel, then the centroid-update kernel; ``fused``, ``resident`` and
+``batched`` (which always step here, as in the reference) run the fused
+kernel, one launch a trip, whose accumulate is the centroid update's
+chunked sort.  Both spread the one lane's sort and sums over the whole
+card, and give the same centroids bit for bit.
 """
 from __future__ import annotations
 

@@ -69,6 +69,29 @@ def chunk_plan(n_lanes: int, s: int, sms: int,
     return ChunkPlan(rows, chunks, -(-chunks // CHUNK_SEG))
 
 
+def check_k(k: int, what: str):
+    """Raise for a k whose counts do not fit one block's shared memory: the
+    histogram and scatter passes keep k ints there (k <= 58,112)."""
+    if k * 4 > _SMEM_PER_BLOCK:
+        raise ValueError(f"k={k} clusters exceed {what}'s shared-memory "
+                         f"budget (a chunk's k counts)")
+
+
+def workspaces(n_l: int, s: int, k: int, dev, chunk_rows=None):
+    """The chunk plan of ``n_l`` lanes of ``s`` rows on the card ``dev`` and
+    the int32 workspaces of the six passes, from the caching allocator:
+    ``(plan, hist (n_l, chunks, k), seg (n_l, segs, k), start (n_l, k + 1),
+    order (n_l, s))``."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = chunk_plan(n_l, s, sms, chunk_rows)
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    return (plan, i32(n_l, plan.chunks, k), i32(n_l, plan.segs, k),
+            i32(n_l, k + 1), i32(n_l, s))
+
+
 def _check(x, labels, w, k, lanes):
     if x.dim() != 3 or labels.dim() != 2 or w.dim() != 2:
         raise ValueError(f"expected points (M,S,d), labels (L,S) and weights "
@@ -143,9 +166,7 @@ def _launch(x, labels, w, k, lanes, chunk_rows):
     n_l = lanes.numel()
     if not all(t.is_contiguous() for t in (x, labels, w, lanes)):
         raise ValueError("the centroid-update kernel takes contiguous tensors")
-    if k * 4 > _SMEM_PER_BLOCK:
-        raise ValueError(f"k={k} clusters exceed the centroid update's "
-                         f"shared-memory budget (a chunk's k counts)")
+    check_k(k, "the centroid update")
     dev = x.device
     sums = torch.empty((n_l, k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((n_l, k), dtype=torch.float32, device=dev)
@@ -153,14 +174,7 @@ def _launch(x, labels, w, k, lanes, chunk_rows):
         return sums, counts
     if s == 0:
         return sums.zero_(), counts.zero_()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = chunk_plan(n_l, s, sms, chunk_rows)
-
-    def i32(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    hist, seg = i32(n_l, plan.chunks, k), i32(n_l, plan.segs, k)
-    start, order = i32(n_l, k + 1), i32(n_l, s)
+    plan, hist, seg, start, order = workspaces(n_l, s, k, dev, chunk_rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel()(x.data_ptr(), w.data_ptr(), lanes.data_ptr(),

@@ -27,15 +27,19 @@
 //   * the TPU kernel keeps the (k, d) accumulators resident in VMEM across
 //     its sequential grid.  Blocks here run in no order and one lane's
 //     accumulator (1024 x 64 f32 = 256 KB) exceeds a block's shared memory,
-//     so the reduction over points is a second pass (`accumulate_kernel`),
-//     one block per lane: an integer histogram of labels, a scan, a stable
-//     counting sort of the point indices by label (one warp, 32 points at a
-//     time, ranks from __match_any_sync), then one warp per cluster summing
-//     its points in increasing point order.  The SSE is a fixed-shape tree
-//     reduction.  No float atomics anywhere: the same inputs give the same
-//     bits on every run.  The labels and distances make one round trip
-//     through device memory between the passes (8 bytes a point, against
-//     the 256 bytes a point the product reads at d = 64).
+//     so the reduction over points is a second pass: the centroid-update
+//     kernel's six launches (segment_sort.cuh), a stable counting sort of
+//     each lane's rows by label cut into chunks over the whole card, then
+//     one warp per (lane, cluster) summing its rows in increasing point
+//     order.  A stable sort by label is unique, so the sums and counts are
+//     the centroid update's bit for bit on the same labels, at every lane
+//     count: one lane of 2^23 rows spreads over all 132 SMs as a stack of
+//     512 lanes does.  The SSE is one block a lane (`sse_kernel`), a
+//     fixed-shape tree.  No float atomics anywhere: the same inputs give
+//     the same bits on every run.  The labels and distances make one round
+//     trip through device memory between the passes (8 bytes a point,
+//     against the 256 bytes a point the product reads at d = 64), and the
+//     wrapper may return them (`return_labels`).
 //   * no padding of d, S or k: every ragged edge is masked in the kernels.
 //   * the scoring and the reduction are device functions in lloyd_device.cuh,
 //     shared with the whole-solve kernel (lloyd_solve.cu) and the assign and
@@ -49,13 +53,12 @@
 #include <math.h>
 
 #include "lloyd_device.cuh"
+#include "segment_sort.cuh"
 
 namespace {
 
 using lloyd::BM;
 using lloyd::NT;
-constexpr int ACC_THREADS = 1024;
-
 constexpr int NORM_THREADS = 256;
 
 __global__ void __launch_bounds__(NORM_THREADS)
@@ -84,30 +87,33 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
                            nullptr, nullptr, nullptr, 0);
 }
 
-__global__ void __launch_bounds__(ACC_THREADS)
-accumulate_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const int* __restrict__ lanes,
-                  const int* __restrict__ labels,
-                  const float* __restrict__ mind, int S, int d, int k,
-                  int* __restrict__ order, float* __restrict__ sums,
-                  float* __restrict__ counts, float* __restrict__ sse) {
-  extern __shared__ int smem[];
-  __shared__ float red[ACC_THREADS];
+// sse[g] = sum_i w_i mind_i over lane lanes[g]: block_weighted_sum's
+// fixed-shape tree, one block a lane
+constexpr int SSE_THREADS = 1024;
+
+__global__ void __launch_bounds__(SSE_THREADS)
+sse_kernel(const float* __restrict__ w, const int* __restrict__ lanes,
+           const float* __restrict__ mind, int S, float* __restrict__ sse) {
+  __shared__ float red[SSE_THREADS];
   const int g = blockIdx.x;
-  const float total = lloyd::block_weighted_sum<ACC_THREADS>(
+  const float total = lloyd::block_weighted_sum<SSE_THREADS>(
       w + (long long)lanes[g] * S, mind + (long long)g * S, S, red);
   if (threadIdx.x == 0) sse[g] = total;
-  lloyd::lane_segment_sums<ACC_THREADS>(x, w, lanes, labels, S, d, k, order,
-                                        smem, sums, counts);
 }
 
 }  // namespace
 
+// One fused step of the listed lanes; with assign_only it stops at labels
+// and mind, and takes no weights, chunk plan or workspaces.  Otherwise
+// segment_sums's chunk plan (C, chunks, segs) and workspaces (hist, seg,
+// start, order) come from the caller.
 extern "C" int fused_lloyd(const float* x, const float* c, const float* w,
                            const int* lanes, int L, int S, int d, int k,
-                           float* cn, int* labels, float* mind, int* order,
-                           float* sums, float* counts, float* sse,
-                           int assign_only, void* stream_ptr) {
+                           float* cn, int* labels, float* mind, int C,
+                           int chunks, int segs, int* hist, int* seg,
+                           int* start, int* order, float* sums,
+                           float* counts, float* sse, int assign_only,
+                           void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;
   centroid_norms_kernel<<<dim3((k + NORM_THREADS - 1) / NORM_THREADS, L),
@@ -117,13 +123,8 @@ extern "C" int fused_lloyd(const float* x, const float* c, const float* w,
       x, c, cn, lanes, S, d, k, labels, mind);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (assign_only) return 0;
-  const size_t smem = (2 * (size_t)k + 1) * sizeof(int);
-  err = cudaFuncSetAttribute(accumulate_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  accumulate_kernel<<<L, ACC_THREADS, smem, stream>>>(
-      x, w, lanes, labels, mind, S, d, k, order, sums, counts, sse);
+  sse_kernel<<<L, SSE_THREADS, 0, stream>>>(w, lanes, mind, S, sse);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return 0;
+  return (int)segment_sums(x, w, lanes, labels, L, S, d, k, C, chunks, segs,
+                           hist, seg, start, order, sums, counts, stream);
 }

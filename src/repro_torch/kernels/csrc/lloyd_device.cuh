@@ -17,17 +17,15 @@
 //     whole-solve kernel's halves) can score two tiles each at its own
 //     pace.  Every score is still the sum over d in increasing order, so
 //     the pipeline changes no bit.
-//   * segment_sums: the weighted per-cluster sums and counts of a lane from
-//     its labels, by a stable counting sort and one warp per cluster
-//     summing its points in increasing point order (no float atomics); a
-//     label outside [0, k) contributes nothing.  Its steps (label_histogram,
-//     scan_counts, stable_scatter, cluster_sums) are separate so that the
-//     whole-solve kernel can run them across the blocks of a cluster with
-//     the same bits.  lane_segment_sums is the same as the body of a kernel
-//     with one block per listed lane, the fused pass's accumulate kernel.
-//     The centroid-update kernel (sweeps.cu) spreads the same sort over
-//     many blocks and sums with cluster_sums's arithmetic, so its sums are
-//     these bit for bit.
+//   * the steps of a lane's weighted per-cluster sums and counts from its
+//     labels (label_histogram, scan_counts, stable_scatter, cluster_sums):
+//     a stable counting sort, then one warp per cluster summing its points
+//     in increasing point order (no float atomics); a label outside [0, k)
+//     contributes nothing.  The whole-solve kernel runs them across the
+//     blocks of a cluster.  segment_sort.cuh (the centroid update and the
+//     fused pass's accumulate) spreads the same sort over many blocks and
+//     sums with cluster_sums's arithmetic, so its sums are these bit for
+//     bit.
 //   * block_weighted_sum: the lane's SSE as a fixed-shape tree.
 //
 // Arrays that the whole-solve kernel writes while it runs (centroids,
@@ -432,42 +430,6 @@ __device__ void cluster_sums(const float* __restrict__ xl,
     }
     if (lid == 0) counts[j] = cnt;
   }
-}
-
-// Weighted per-cluster sums (k, d) and counts (k,) of a lane from its
-// labels.  start (k + 1) and cursor (k) are shared-memory ints, ord an
-// (S,) int workspace.  Called by all NTH threads; ends with a barrier.
-template <int NTH>
-__device__ void segment_sums(const float* __restrict__ xl,
-                             const float* __restrict__ wl, const int* lab,
-                             int S, int d, int k, int* ord, int* start,
-                             int* cursor, float* sums, float* counts) {
-  label_histogram<NTH>(lab, 0, S, k, cursor);
-  if (threadIdx.x < 32) scan_counts(cursor, nullptr, k, start, cursor);
-  __syncthreads();
-  if (threadIdx.x < 32) stable_scatter(lab, 0, S, k, cursor, ord);
-  __syncthreads();
-  cluster_sums<NTH>(xl, wl, ord, start, 0, k, d, sums, counts);
-  __syncthreads();
-}
-
-// segment_sums as the body of a kernel with one block per listed lane:
-// block g sums lane lanes[g] of x (M,S,d) and w (M,S) by row g of labels
-// (L,S) into row g of sums (L,k,d) and counts (L,k).  order is an (L,S) int
-// workspace; smem holds 2k + 1 ints of dynamic shared memory.
-template <int NTH>
-__device__ void lane_segment_sums(const float* __restrict__ x,
-                                  const float* __restrict__ w,
-                                  const int* __restrict__ lanes,
-                                  const int* __restrict__ labels, int S,
-                                  int d, int k, int* __restrict__ order,
-                                  int* smem, float* __restrict__ sums,
-                                  float* __restrict__ counts) {
-  const long long g = blockIdx.x;
-  const long long lane = lanes[g];
-  segment_sums<NTH>(x + lane * S * (long long)d, w + lane * S, labels + g * S,
-                    S, d, k, order + g * S, smem, smem + k + 1,
-                    sums + g * k * (long long)d, counts + g * k);
 }
 
 }  // namespace lloyd

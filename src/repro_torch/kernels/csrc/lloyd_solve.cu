@@ -39,7 +39,8 @@
 //         order, by point, as one block's sort;
 //       - segment sums: after a cluster barrier, each cluster is summed by
 //         one warp of its owner block in increasing point order, read from
-//         the order in device memory (the same bits as segment_sums);
+//         the order in device memory (cluster_sums: the same bits as the
+//         fused pass's and the centroid update's segment_sums);
 //       - division: the owner divides its centroid rows keep-old in place
 //         in the lane's centroid buffer; the shift is the max over the
 //         blocks' movements and the empty flag their OR, exchanged through

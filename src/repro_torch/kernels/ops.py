@@ -27,16 +27,21 @@ __all__ = ["assign", "centroid_update", "init_sweep", "lloyd_step_fused",
            "lloyd_solve_bounds_ref"]
 
 
-def lloyd_step_fused(points, centroids, weights=None, *, lanes=None):
+def lloyd_step_fused(points, centroids, weights=None, *, lanes=None,
+                     return_labels=False):
     """One fused Lloyd pass -> (sums (k,d), counts (k,), sse ()) for one
-    subset, or ``(L,k,d), (L,k), (L,)`` for a stack."""
+    subset, or ``(L,k,d), (L,k), (L,)`` for a stack.  With
+    ``return_labels=True`` the same pass also returns its labels and
+    distances, ``(n,)`` i32 and f32 (``(L,S)`` for a stack): the
+    reference's 5-tuple."""
     if points.dim() == 2:
         out = fused.fused_lloyd(
             points.unsqueeze(0), centroids.unsqueeze(0),
-            None if weights is None else weights.unsqueeze(0))
-        return out.sums[0], out.counts[0], out.sse[0]
-    out = fused.fused_lloyd(points, centroids, weights, lanes)
-    return out.sums, out.counts, out.sse
+            None if weights is None else weights.unsqueeze(0),
+            return_labels=return_labels)
+        return tuple(t[0] for t in out)
+    return tuple(fused.fused_lloyd(points, centroids, weights, lanes,
+                                   return_labels=return_labels))
 
 
 def lloyd_assign_fused(points, centroids, *, lanes=None):

@@ -3,7 +3,8 @@ kernel, and the assign, centroid-update and init-sweep kernels against their
 plain versions; the whole-solve kernel's bitwise contracts (bounds == exact,
 one batched launch == one resident launch per lane, every cluster size ==
 one block a lane, forced with ``solve_stack(..., cluster=R)``); the two-pass
-step's sums bit for bit the fused pass's; repeat launches bit-identical.  Marked
+step's sums bit for bit the fused pass's, on a stack and on one large lane;
+repeat launches bit-identical.  Marked
 ``cuda``; skips without a card.
 Run on a machine with one (no JAX needed, so without the JAX conftest):
 
@@ -332,8 +333,7 @@ def test_update_kernel_chunks_are_fused_bit_for_bit(card, case):
 
 def test_update_kernel_at_a_k_near_its_limit(card):
     """k = 58,000 of the kernel's 58,112 (k counts in one block's shared
-    memory); the fused pass refuses such a k, so the bits are held against
-    another chunk plan instead."""
+    memory); the bits are held against another chunk plan."""
     g = torch.Generator().manual_seed(8)
     k, n, d = 58000, 2000, 17
     x = (torch.randn((1, n, d), generator=g) * 3.0).to(card)
@@ -351,6 +351,95 @@ def test_update_kernel_at_a_k_near_its_limit(card):
         x, lab, w, k, chunk_rows=32))
     with pytest.raises(ValueError, match="shared-memory"):
         centroid_update.centroid_update(x, lab, w, 58113)
+
+
+# an f32 sum of n terms in point order (one warp per cluster, as the bits
+# require) against the plain version's blocked sum: each entry within the
+# probabilistic bound SEQ_LAMBDA sqrt(n) 2**-24 sum |w x| of either sum
+# (Higham and Mary, 2019; an entry fails by chance with probability below
+# 2 exp(-18) at 6)
+SEQ_LAMBDA = 6.0
+
+
+def _lane_case(dev, case):
+    """One lane of 2**20 rows, d = 16, from a mixture around k = 4100
+    centroids (no near-ties); ``skewed``: half its rows next to centroid 0
+    and 30% of the weights zero."""
+    g = torch.Generator().manual_seed(10)
+    n, d, k = 1 << 20, 16, 4100
+    c = torch.randn((1, k, d), generator=g) * 3.0
+    x = c[:, torch.randint(0, k, (n,), generator=g)] + torch.randn(
+        (1, n, d), generator=g) * 0.3
+    w = torch.ones((1, n))
+    if case == "skewed":
+        half = torch.randperm(n, generator=g)[:n // 2]
+        x[0, half] = c[0, 0] + torch.randn((n // 2, d), generator=g) * 0.3
+        w = (torch.rand((1, n), generator=g) >= 0.3).float()
+    return x.to(dev), c.to(dev), w.to(dev)
+
+
+@pytest.mark.parametrize("case", ["one_lane", "skewed"])
+def test_fused_step_on_one_large_lane_is_the_update_bit_for_bit(card, case):
+    """The fused step's accumulate is the centroid update's chunked passes:
+    on one lane of 2**20 rows, the update kernel's sums and counts on the
+    step's labels bit for bit; ``return_labels`` gives the assign-only
+    mode's labels and distances bit for bit; a repeat the same bits."""
+    x, c, w = _lane_case(card, case)
+    k = c.shape[1]
+    lanes = torch.zeros(1, dtype=torch.int32, device=card)
+    before = fused.launches
+    out = fused.fused_lloyd(x, c, w, return_labels=True)
+    assert fused.launches == before + 1
+    asg = fused.fused_lloyd(x, c, assign_only=True)
+    assert torch.equal(out.labels, asg.labels)
+    assert torch.equal(out.mind, asg.mind)
+    sums, counts = centroid_update.centroid_update(x, asg.labels, w, k)
+    assert torch.equal(out.sums, sums) and torch.equal(out.counts, counts)
+    assert _same(out, fused.fused_lloyd(x, c, w, return_labels=True))
+    assert _same(out[:3], fused.fused_lloyd(x, c, w))
+    # the plain versions: labels, counts exact; sums and sse f32 sums in
+    # another order
+    assert torch.equal(asg.labels, assign.assign_plain(x, c, lanes).labels)
+    plain = centroid_update.centroid_update_plain(x, asg.labels, w, k, lanes)
+    assert torch.equal(out.counts, plain[1])
+    err = torch.abs(out.sums - plain[0])
+    if case == "skewed":
+        assert float((asg.labels == 0).float().mean()) > 0.45
+        terms = centroid_update.centroid_update_plain(
+            x, asg.labels, torch.ones_like(w), k, lanes)[1].unsqueeze(-1)
+        mag = centroid_update.centroid_update_plain(x.abs(), asg.labels, w,
+                                                    k, lanes)[0]
+        tol = 2.0 * SEQ_LAMBDA * torch.sqrt(terms) * 2.0 ** -24 * mag
+        assert bool((err <= tol).all())
+    else:
+        assert float(err.max()) <= 1e-5 * float(plain[0].abs().max())
+    torch.testing.assert_close(out.sse, torch.sum(w * asg.mind, dim=1),
+                               rtol=1e-4, atol=0.0)
+
+
+def test_fused_step_at_a_large_k_and_past_its_limit(card):
+    """k = 40,000: the step's accumulate keeps k counts in one block's
+    shared memory, so it takes k up to 58,112 and raises past it."""
+    g = torch.Generator().manual_seed(11)
+    k, n, d = 40000, 3000, 17
+    x = (torch.randn((1, n, d), generator=g) * 3.0).to(card)
+    c = (torch.randn((1, k, d), generator=g) * 3.0).to(card)
+    w = (torch.rand((1, n), generator=g) > 0.2).float().to(card)
+    lanes = torch.zeros(1, dtype=torch.int32, device=card)
+    out = fused.fused_lloyd(x, c, w, return_labels=True)
+    asg = fused.fused_lloyd(x, c, assign_only=True)
+    assert torch.equal(out.labels, asg.labels)
+    sums, counts = centroid_update.centroid_update(x, asg.labels, w, k)
+    assert torch.equal(out.sums, sums) and torch.equal(out.counts, counts)
+    assert _same(out, fused.fused_lloyd(x, c, w, return_labels=True))
+    plain = centroid_update.centroid_update_plain(x, asg.labels, w, k, lanes)
+    assert torch.equal(out.counts, plain[1])
+    scale = float(plain[0].abs().max())
+    assert float((out.sums - plain[0]).abs().max()) <= 1e-5 * scale
+    torch.testing.assert_close(out.sse, torch.sum(w * asg.mind, dim=1),
+                               rtol=1e-4, atol=0.0)
+    with pytest.raises(ValueError, match="shared-memory"):
+        fused.fused_lloyd(x, torch.zeros((1, 58113, d), device=card), w)
 
 
 @pytest.mark.parametrize("backend", ["resident", "batched"])

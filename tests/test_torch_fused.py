@@ -1,7 +1,8 @@
 """The port's fused Lloyd pass (its plain version, which is what a CPU
 tensor runs) against the reference's Pallas kernel in interpret mode.
 
-Same numpy inputs, made from a seed, go to both packages.  Tolerances:
+Same numpy inputs, made from a seed, go to both packages; the step's
+``return_labels`` mode is held against the reference's 5-tuple.  Tolerances:
 labels and counts exact (random inputs have no near-ties, and duplicated
 centroids tie exactly, where both take the lowest index); sums, sse and
 mind rtol 1e-4 with a small atol, because both are f32 sums of the same
@@ -54,6 +55,12 @@ def test_step_and_assign_match_reference(name):
     tx, tc, tw = (torch.from_numpy(a) for a in (x, c, w))
     sums, cnt, sse = ops.lloyd_step_fused(tx, tc, tw)
     lab, mind = ops.lloyd_assign_fused(tx, tc)
+    # return_labels: the step's own labels and distances from the same pass
+    *step, s_lab, s_mind = ops.lloyd_step_fused(tx, tc, tw,
+                                                return_labels=True)
+    assert all(torch.equal(a, b) for a, b in zip(step, (sums, cnt, sse)))
+    np.testing.assert_array_equal(s_lab.numpy(), j_lab)
+    np.testing.assert_allclose(s_mind.numpy(), j_mind, rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(lab.numpy(), j_lab)
     np.testing.assert_array_equal(cnt.numpy(), j_cnt)
     np.testing.assert_allclose(sums.numpy(), j_sums, rtol=RTOL, atol=ATOL)
