@@ -81,7 +81,22 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      on the CPU, survivors bit for bit (the reference's flat argmin
      search timed beside the row minima on the card); the merged SSE
      against min-ASSE's;
- 15. a ``{"kernels": [...]}`` line, the card's line, and as the last line
+ 15. [bf16]: the main path on the main input in bfloat16 (points and
+     seeds, 1 GB), on ``batched`` and ``fused``: bfloat16 results, equal
+     lane iterations, intermediate centroids and SSE bit for bit between
+     the engines and the resident solves of the first lanes; the bf16
+     carry's whole solve timed beside the f32 kernel on the same stack and
+     held against its plain version over one trip of an 8-lane slice; one
+     call of each bf16-accumulate wrapper (``spec=KernelSpec(acc_dtype=
+     "bfloat16")``: the fused step and the assign at 512x16384x64, k =
+     1024, the update on the assign's labels, one init sweep of 2**23
+     points against 2048 candidates) with the counts reset just before and
+     read just after, each against its bf16 plain version (near-tie labels
+     and departing rows counted), then the same checks on the f32 kernels
+     and on blocks of half the rows, which must fail them; each timed
+     beside the f32 kernel and its bound at the bf16 tensor-core peak;
+ 16. a ``{"kernels": [...]}`` line (the six kernels and their bf16
+     variants), the card's line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no last line.  Without a CUDA
@@ -111,8 +126,10 @@ REPLACES_ASSIGN = "src/repro/kernels/assign.py:36"
 REPLACES_UPDATE = "src/repro/kernels/centroid_update.py:31"
 REPLACES_INIT = "src/repro/kernels/init.py:60"
 
-# H100 SXM data sheet, at its 700 W limit: f32 without tensor cores, HBM3
+# H100 SXM data sheet, at its 700 W limit: f32 without tensor cores, dense
+# bf16 on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 # the main path: one H100's eighth of the production problem of
@@ -184,6 +201,34 @@ PK_FULL_TRIPS = 2
 PK_RTOL = 1e-4
 # [merge]: the lanes of [main]'s batched stack whose centroids are merged
 MERGE_LANES = 8
+# [bf16]: a bf16 kernel and its plain version take the same rounding points
+# but sum each dot product, and each block's partial sums, in float32 in
+# their own order, so now and then one rounding lands a bfloat16 step
+# apart.  A label may differ only where the plain version's two scores lie
+# within BF16_TIE_ULPS bf16 ulps of the score's largest term, max(|cn|,
+# |2 x.c|) (one rounding of x.c or of cn moves the score by at most that);
+# a distance by BF16_MIND_ULPS such ulps plus MIND_REL of ||x||^2; a sum by
+# BF16_SUM_REL of its rows' absolute weighted sum (each block partial
+# rounded once by each, at most one bf16 step, 2**-7 relative, apart).
+# Those bounds also hold for float32 arithmetic, so the rare step is also
+# counted: at most BF16_DEPART_SHARE of the rows (plus BF16_DEPART_FLOOR)
+# may depart from the plain version, a row by its label or by a distance
+# beyond the float32 noise MIND_REL of ||x||^2, a sum entry beyond
+# UPDATE_REL of its rows' absolute weighted sum.  The check must tell the
+# arithmetic apart: the float32 kernels, and the accumulates over blocks of
+# half the rows, fail it on the same inputs, or the phase fails.
+# The bf16 carry's whole solve is held against its plain version over one
+# trip from the seeds (centroids within one bf16 ulp, SSE within
+# BF16_SSE_RTOL: a centroid a bf16 ulp away moves its points' distances),
+# and on the main path bit for bit against the fused engine and the
+# resident solves of the first BF16_RESIDENT_LANES lanes.
+BF16_TIE_ULPS = 1
+BF16_MIND_ULPS = 2
+BF16_SUM_REL = 2.0 ** -7
+BF16_DEPART_SHARE = 2.0 ** -10
+BF16_DEPART_FLOOR = 2
+BF16_SSE_RTOL = 1e-3
+BF16_RESIDENT_LANES = 4
 
 
 def fail(msg: str) -> int:
@@ -201,7 +246,8 @@ def nvidia_smi_line() -> str:
 
 def kernel_name(mangled: str) -> str:
     """A kernel's name from its mangled symbol: the identifier after the
-    (anonymous) namespace, with <true>/<false> for a bool template flag."""
+    (anonymous) namespace, with <true>/<false> for each bool template
+    flag."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -211,9 +257,12 @@ def kernel_name(mangled: str) -> str:
         return mangled
     i += n.end()
     ident = mangled[i:i + int(n.group(0))]
-    rest = mangled[i + int(n.group(0)):]
-    return ident + ("<true>" if rest.startswith("ILb1E") else
-                    "<false>" if rest.startswith("ILb0E") else "")
+    flags = re.match(r"I((?:Lb[01]E)+)E", mangled[i + int(n.group(0)):])
+    if not flags:
+        return ident
+    names = ["true" if f == "1" else "false"
+             for f in re.findall(r"Lb([01])E", flags.group(1))]
+    return f"{ident}<{', '.join(names)}>"
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -1933,6 +1982,385 @@ def phase_merge(torch, main: dict) -> bool:
     return ok
 
 
+def bf16_score(torch, xr, cc):
+    """The plain bf16 score of rows ``xr (R,d)`` against ``cc (R,d)``, and
+    one bf16 ulp of its largest term max(|cn|, |2 x.c|), the most one
+    rounding of x.c can move it -> two (R,) tensors."""
+    from repro_torch.kernels import ref
+    cn = ref.round_bf16(torch.sum(cc.float() * cc.float(), dim=-1))
+    dot = ref.round_bf16(torch.sum(ref.round_bf16(xr) * ref.round_bf16(cc),
+                                   dim=-1))
+    term = torch.clamp(torch.maximum(cn.abs(), 2.0 * dot.abs()),
+                       min=torch.finfo(torch.float32).tiny)
+    return (ref.round_bf16(cn - 2.0 * dot),
+            torch.exp2(torch.floor(torch.log2(term)) - 7))
+
+
+def bf16_departures_ok(n_dep: int, n: int) -> bool:
+    """At most BF16_DEPART_SHARE of ``n`` rows or entries, plus
+    BF16_DEPART_FLOOR, depart from the plain version."""
+    return n_dep <= BF16_DEPART_SHARE * n + BF16_DEPART_FLOOR
+
+
+def bf16_assign_check(tag, torch, x, c, got, want, x2_rows=None):
+    """A bf16 kernel's labels and distances (L,S) against its plain
+    version's: a label may differ only where the plain version's two bf16
+    scores lie within BF16_TIE_ULPS ulps of the score's largest term; a
+    distance within BF16_MIND_ULPS such ulps plus MIND_REL of ||x||^2; rows
+    that depart (a label, or a distance beyond MIND_REL of ||x||^2) within
+    bf16_departures_ok.  Prints one line and returns (ok, differing labels,
+    departing rows, max |mind error|)."""
+    from repro_torch.kernels import ref
+    diff = got[0] != want[0]
+    lane, row = torch.nonzero(diff, as_tuple=True)
+    ties_ok = True
+    if row.numel():
+        xr = x[lane, row]
+        sk, uk = bf16_score(torch, xr, c[lane, got[0][lane, row].long()])
+        sp, up = bf16_score(torch, xr, c[lane, want[0][lane, row].long()])
+        ties_ok = bool(torch.all((sk - sp).abs()
+                                 <= BF16_TIE_ULPS * torch.maximum(uk, up)))
+    worst, err, n_dep = 0.0, 0.0, int(diff.sum())
+    for g in range(x.shape[0]):
+        xn = (ref.round_bf16(x[g]) if x2_rows is None
+              else x2_rows[g].float())
+        _, ulp = bf16_score(torch, x[g], c[g][want[0][g].long()])
+        noise = MIND_REL * torch.sum(xn * xn, dim=-1) + 1e-6
+        e = (got[1][g] - want[1][g]).abs()
+        worst = max(worst, float(torch.max(e / (BF16_MIND_ULPS * ulp
+                                                 + noise))))
+        n_dep += int(((e > noise) & ~diff[g]).sum())
+        err = max(err, float(torch.max(e)))
+    dep_ok = bf16_departures_ok(n_dep, diff.numel())
+    ok = ties_ok and worst <= 1.0 and dep_ok
+    print(f"[{tag}] kernel vs plain (bf16): {int(diff.sum())} of "
+          f"{diff.numel()} labels differ, all at bf16 near-ties "
+          f"(within {BF16_TIE_ULPS} ulp of the score's largest term): "
+          f"{ties_ok}; mind max|err| {err:.4g}, worst / tolerance "
+          f"{worst:.3g}; rows departing {n_dep} (allowed "
+          f"{BF16_DEPART_SHARE * diff.numel() + BF16_DEPART_FLOOR:.0f}): "
+          f"passes {ok}", flush=True)
+    return ok, int(diff.sum()), n_dep, err
+
+
+def bf16_sums_check(tag, torch, x, lab, w, k, got, want, lanes):
+    """A bf16 accumulate (sums, counts) against its plain version's on the
+    same labels: counts equal; each sum within BF16_SUM_REL of its rows'
+    absolute weighted sum (each block partial is rounded once by each, at
+    most one bf16 step apart); entries departing beyond UPDATE_REL of it
+    within bf16_departures_ok.  Prints one line and returns (ok, max |sum
+    error|, departing entries)."""
+    from repro_torch.kernels import centroid_update
+    mag, _ = centroid_update.centroid_update_plain(x.float().abs(), lab,
+                                                   w.abs(), k, lanes)
+    e = (got[0] - want[0]).abs()
+    worst = float(torch.max(e / (BF16_SUM_REL * mag + 1e-6)))
+    n_dep = int((e > UPDATE_REL * mag + 1e-6).sum())
+    same_counts = torch.equal(got[1], want[1])
+    ok = worst <= 1.0 and same_counts and bf16_departures_ok(n_dep, e.numel())
+    print(f"[{tag}] sums vs plain (bf16, same labels): max|err| "
+          f"{float(e.max()):.4g}, worst / tolerance {worst:.3g}; entries "
+          f"departing {n_dep} of {e.numel()}; counts equal {same_counts}: "
+          f"passes {ok}", flush=True)
+    return ok, float(e.max()), n_dep
+
+
+def bf16_init_check(tag, torch, x, cands, u, psi0, got, want):
+    """A bf16 init sweep (new_mind, sampled, psi) against its plain
+    version's: new_mind within BF16_MIND_ULPS ulps of the best score's
+    largest term plus MIND_REL of ||x||^2, rows departing beyond that noise
+    within bf16_departures_ok; a draw may differ only where u psi_prev is
+    that close to ell mind; psi within 10 INIT_REL.  Prints one line and
+    returns (ok, max |new_mind error|, differing draws)."""
+    from repro_torch.kernels import ref
+    n = x.shape[0]
+    ell = 2.0 * K
+    best = torch.cat([torch.argmin(ref.bf16_scores(x[lo:lo + (1 << 15)],
+                                                   cands), dim=1)
+                      for lo in range(0, n, 1 << 15)])
+    _, ulp = bf16_score(torch, x, cands[best])
+    xr = ref.round_bf16(x)
+    noise = MIND_REL * torch.sum(xr * xr, dim=-1) + 1e-6
+    tol = BF16_MIND_ULPS * ulp + noise
+    e = (got[0] - want[0]).abs()
+    n_dep = int((e > noise).sum())
+    differ = got[1] != want[1]
+    draws_ok = bool(torch.all((u * psi0 - ell * want[0]).abs()[differ]
+                              <= ell * tol[differ]))
+    psi_ok = bool(torch.allclose(got[2], want[2], rtol=INIT_REL * 10,
+                                 atol=0))
+    mind_ok = bool(torch.all(e <= tol)) and bf16_departures_ok(n_dep, n)
+    ok = mind_ok and draws_ok and psi_ok
+    print(f"[{tag}] kernel vs plain (bf16): new_mind max|err| "
+          f"{float(e.max()):.4g} within tolerance, rows departing {n_dep} "
+          f"of {n}: {mind_ok}; draws differ at {int(differ.sum())} rows, all "
+          f"at the boundary {draws_ok}; psi {float(got[2]):.6e} vs "
+          f"{float(want[2]):.6e} (rtol {INIT_REL * 10}) {psi_ok}: passes "
+          f"{ok}", flush=True)
+    return ok, float(e.max()), int(differ.sum())
+
+
+def bf16_bound_ms(flops: float, nbytes: float):
+    """The least time for bf16 work of ``flops`` operations that must move
+    ``nbytes``: the operations at the bf16 tensor-core peak, the bytes at
+    the memory rate -> (ms, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_bf16(torch, main: dict):
+    """[bf16]: the main path on the main input in bfloat16 (points and
+    seeds), on ``batched`` and ``fused``: bf16 results, equal lane
+    iterations, centroids bit for bit between the engines and the resident
+    solve of the first lanes; the bf16 carry's whole-solve time beside the
+    f32 one.  Then one step of each bf16-accumulate kernel (``spec=
+    KernelSpec(acc_dtype="bfloat16")``) at the main stack's shape, the
+    update on the assign's labels, one init sweep of 2**23 points against
+    2048 candidates, each through its public wrapper with the counts reset
+    just before and read just after, each against its bf16 plain version
+    (the f32 kernels and blocks of half the rows must fail those checks),
+    timed beside the f32 kernel.  Returns the reports of the bf16 variants,
+    or None when a check failed."""
+    from repro_torch.core.ipkmeans import _partition_and_pack
+    from repro_torch.kernels import (assign, centroid_update, fused, init,
+                                     ops, ref, specs)
+    from repro_torch.kernels import batch_resident as br
+    dev = torch.device("cuda")
+    spec = specs.KernelSpec(acc_dtype="bfloat16")
+    upd_spec = specs.UPDATE_DEFAULT_SPEC.replace(acc_dtype="bfloat16")
+    xb = main["x"].to(torch.bfloat16)
+    initb = main["init"].to(torch.bfloat16)
+    print(f"[bf16] data: the main input in bfloat16 "
+          f"({xb.numel() * 2 / 1e9:.2f} GB), its seeds in bfloat16",
+          flush=True)
+
+    # the main path, bf16 points and seeds, on batched then fused
+    cfg_b, cfg_f = main["config"]("batched"), main["config"]("fused")
+    res_b, secs_b, counts_b = run_path(torch, xb, initb, cfg_b, dev)
+    res_f, secs_f, counts_f = run_path(torch, xb, initb, cfg_f, dev)
+    for tag, res, secs, counts in (("batched", res_b, secs_b, counts_b),
+                                   ("fused", res_f, secs_f, counts_f)):
+        it = res.subset_iters.float()
+        print(f"[bf16] main path on {tag}: {secs:.3f} s (f32 batched "
+              f"{main['secs_b']:.3f} s), launches {counts}, subset_iters "
+              f"min/median/max {int(it.min())}/{float(it.median()):.0f}/"
+              f"{int(it.max())}; SSE {float(res.sse):.6e} ({res.sse.dtype}; "
+              f"f32 run {float(main['res_b'].sse):.6e})", flush=True)
+    _, subsets_b, masks = _partition_and_pack(xb, cfg_b)
+    masks = masks.float()
+    lanes_same = [identical(resident_out(subsets_b[i], initb, masks[i],
+                                         max_iters=MAX_ITERS, tol=TOL,
+                                         reseed_empty=True)[:1],
+                            (res_b.intermediate[i:i + 1],))
+                  for i in range(BF16_RESIDENT_LANES)]
+    n_diff = int((res_b.subset_iters != res_f.subset_iters).sum())
+    same_c = torch.equal(res_b.intermediate, res_f.intermediate)
+    dtypes = {str(t.dtype) for t in (res_b.centroids, res_b.intermediate,
+                                     res_f.centroids, res_b.sse)}
+    print(f"[bf16] batched against fused: lanes whose iters differ "
+          f"{n_diff}, intermediate centroids bit for bit {same_c}, SSE "
+          f"equal {torch.equal(res_b.sse, res_f.sse)}; the first "
+          f"{BF16_RESIDENT_LANES} lanes' resident solves bit for bit "
+          f"{lanes_same}; result dtypes {sorted(dtypes)}", flush=True)
+    ok = (main["sane"](res_b) and main["sane"](res_f)
+          and dtypes == {"torch.bfloat16"} and n_diff == 0 and same_c
+          and torch.equal(res_b.sse, res_f.sse) and all(lanes_same)
+          and counts_b == counts_of(lloyd_solve_batched=1)
+          and counts_f["fused_lloyd"] > 0)
+    if not ok:
+        print("[bf16] FAIL main path", flush=True)
+        return None
+
+    # the bf16 carry's whole solve beside the f32 one, on the same stack
+    kw = dict(max_iters=MAX_ITERS, tol=TOL, reseed_empty=True)
+    m_, s_, d_ = subsets_b.shape
+    carry = solve_batched(subsets_b, initb, masks, **kw)
+    ms_c = cuda_time_ms(lambda: solve_batched(subsets_b, initb, masks, **kw),
+                        reps=2, warmup=1)
+    sub32 = subsets_b.float()
+    ms_32 = cuda_time_ms(lambda: solve_batched(sub32, initb.float(), masks,
+                                               **kw), reps=2, warmup=1)
+    # an 8-lane slice, one trip from the seeds, against the plain version:
+    # the division of sums taken in another f32 order rounds to bf16
+    # within one ulp (later trips could part at a near-tie)
+    xs, ws = subsets_b[:PLAIN_LANES].contiguous(), masks[:PLAIN_LANES]
+    kw1 = dict(kw, max_iters=1)
+    plain8 = br.lloyd_solve_plain(xs, initb, ws, **kw1)
+    got8 = solve_batched(xs, initb, ws, **kw1)
+    plain_ms = cuda_time_ms(lambda: br.lloyd_solve_plain(xs, initb, ws, **kw),
+                            reps=1, warmup=1)
+    c_err = (got8.centroids.float() - plain8.centroids.float()).abs()
+    c_ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(
+        plain8.centroids.float().abs(), min=1e-30))) - 7)
+    slice_ok = (torch.equal(got8.iters, plain8.iters)
+                and bool(torch.all(c_err <= c_ulp))
+                and bool(torch.allclose(got8.sse, plain8.sse,
+                                        rtol=BF16_SSE_RTOL, atol=0)))
+    passes = int(carry.passes.sum())
+    bound, by = solve_bound_ms(s_, d_, K, m_, passes, 0, MAX_ITERS)
+    print(f"[bf16] whole-solve kernel, bf16 carry, {m_}x{s_}x{d_}, k={K}: "
+          f"{ms_c:.4f} ms ({passes} score passes), the f32 kernel on the "
+          f"same (widened) points and seeds {ms_32:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}); {PLAIN_LANES}-lane slice, one trip, "
+          f"against the plain version: iters equal, centroids within one "
+          f"bf16 ulp (max|err| {float(c_err.max()):.4g}), SSE rtol "
+          f"{BF16_SSE_RTOL}: {slice_ok} (plain, whole solve of the slice: "
+          f"{plain_ms:.4f} ms)",
+          flush=True)
+    if not slice_ok:
+        print("[bf16] FAIL whole-solve kernel against its plain version",
+              flush=True)
+        return None
+    out = {"lloyd_solve_batched": dict(
+        ms=ms_c, ms_f32=ms_32, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None, max_abs_err=float(c_err.max()),
+        launches=counts_b["lloyd_solve_batched"])}
+
+    # one step of each bf16-accumulate kernel, counted
+    subsets, w = main["subsets"], main["masks"]
+    cents = main["res_f"].intermediate.contiguous()
+    lanes = torch.arange(M, dtype=torch.int32, device=dev)
+    x = main["x"]
+    n = x.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    cands = x[torch.randperm(n, generator=gen, device=dev)[:INIT_C]]
+    old = torch.full((n,), torch.inf, device=dev)
+    old = init.init_sweep(x, cands[:1], old, torch.rand(
+        n, generator=gen, device=dev), 0.0, ell=2.0 * K)[0]
+    psi0 = torch.sum(old)
+    u = torch.rand(n, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    step = fused.StepLabelsOut(*ops.lloyd_step_fused(
+        subsets, cents, w, spec=spec, return_labels=True))
+    asg = ops.assign(subsets, cents, spec=spec)
+    upd = ops.centroid_update(subsets, asg[0], w, K, spec=upd_spec)
+    swp = ops.init_sweep(x, cands, old, u, psi0, ell=2.0 * K, spec=spec)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[bf16] one call of each bf16-accumulate wrapper: launches "
+          f"{counts}", flush=True)
+    ok = counts == counts_of(fused_lloyd=1, assign=1, centroid_update=1,
+                             init_sweep=1)
+
+    # against the plain versions
+    plain = fused.fused_lloyd_plain(subsets, cents, w, spec=spec,
+                                    return_labels=True)
+    ok_f, diff_f, _, err_f = bf16_assign_check(
+        "bf16 fused", torch, subsets, cents, (step.labels, step.mind),
+        (plain.labels, plain.mind))
+    step_plain = centroid_update.centroid_update_plain(
+        subsets, step.labels, w, K, lanes, spec)
+    ok_s, err_s, _ = bf16_sums_check(
+        "bf16 fused", torch, subsets, step.labels, w, K, (step.sums,
+                                                          step.counts),
+        step_plain, lanes)
+    sse_want = torch.sum(ref.round_bf16(w) * step.mind, dim=1)
+    sse_ok = bool(torch.allclose(step.sse, sse_want, rtol=SUM_RTOL, atol=0))
+    asg_plain = assign.assign_plain(subsets, cents, lanes, spec)
+    ok_a, diff_a, _, err_a = bf16_assign_check(
+        "bf16 assign", torch, subsets, cents, asg, asg_plain,
+        x2_rows=subsets)
+    upd_plain = centroid_update.centroid_update_plain(subsets, asg[0], w, K,
+                                                      lanes, upd_spec)
+    ok_u, err_u, _ = bf16_sums_check("bf16 update", torch, subsets, asg[0],
+                                     w, K, upd, upd_plain, lanes)
+    pl_i = init.init_sweep_plain(x, cands, old, u, psi0, ell=2.0 * K,
+                                 spec=spec)
+    ok_i, err_i, diff_i = bf16_init_check("bf16 init", torch, x, cands, u,
+                                          psi0, swp, pl_i)
+    ok = ok and ok_f and ok_s and sse_ok and ok_a and ok_u and ok_i
+
+    # controls, after the counts were read: the same checks on the float32
+    # kernels and on accumulates over blocks of half the rows must fail
+    step32 = fused.fused_lloyd(subsets, cents, w, return_labels=True)
+    half = spec.replace(block_n=spec.block_n // 2)
+    step_half = fused.fused_lloyd(subsets, cents, w, spec=half)
+    controls = {
+        "fused f32": bf16_assign_check(
+            "bf16 control: fused f32", torch, subsets, cents,
+            (step32.labels, step32.mind), (plain.labels, plain.mind))[0],
+        "fused half blocks": bf16_sums_check(
+            "bf16 control: fused, blocks of half the rows", torch, subsets,
+            step.labels, w, K, (step_half.sums, step_half.counts),
+            step_plain, lanes)[0],
+        "assign f32": bf16_assign_check(
+            "bf16 control: assign f32", torch, subsets, cents,
+            assign.assign(subsets, cents), asg_plain, x2_rows=subsets)[0],
+        "update f32": bf16_sums_check(
+            "bf16 control: update f32", torch, subsets, asg[0], w, K,
+            centroid_update.centroid_update(subsets, asg[0], w, K),
+            upd_plain, lanes)[0],
+        "update half blocks": bf16_sums_check(
+            "bf16 control: update, blocks of half the rows", torch, subsets,
+            asg[0], w, K, centroid_update.centroid_update(
+                subsets, asg[0], w, K, spec=upd_spec.replace(
+                    block_n=upd_spec.block_n // 2)), upd_plain, lanes)[0],
+        "init f32": bf16_init_check(
+            "bf16 control: init f32", torch, x, cands, u, psi0,
+            init.init_sweep(x, cands, old, u, psi0, ell=2.0 * K), pl_i)[0],
+    }
+    caught = not any(controls.values())
+    print(f"[bf16] controls fail the bf16 checks as they must: {caught} "
+          f"(passed: {[n for n, v in controls.items() if v]})", flush=True)
+    ok = ok and caught
+    if not ok:
+        print("[bf16] FAIL bf16 kernels against their plain versions",
+              flush=True)
+        return None
+
+    # times: each bf16 kernel beside the f32 kernel on the same inputs
+    n_l, s, d = subsets.shape
+    flops = 2.0 * n_l * s * K * d
+    step_bytes = 4.0 * n_l * (s * d + K * d + s + K * d + K + 1)
+    jobs = {
+        "fused_lloyd": (lambda sp: fused.fused_lloyd(subsets, cents, w,
+                                                     spec=sp),
+                        lambda: fused.fused_lloyd_plain(subsets, cents, w,
+                                                        spec=spec),
+                        flops, step_bytes, err_s, diff_f),
+        "assign": (lambda sp: assign.assign(subsets, cents, spec=sp),
+                   lambda: assign.assign_plain(subsets, cents, lanes, spec),
+                   flops, 4.0 * n_l * (s * d + K * d + 2 * s), err_a,
+                   diff_a),
+        "centroid_update": (
+            lambda sp: centroid_update.centroid_update(
+                subsets, asg[0], w, K, spec=None if sp is None else
+                upd_spec),
+            lambda: centroid_update.centroid_update_plain(
+                subsets, asg[0], w, K, lanes, upd_spec),
+            2.0 * n_l * s * d, 4.0 * n_l * (s * d + 2 * s + K * d + K),
+            err_u, 0),
+        "init_sweep": (
+            lambda sp: init.init_sweep(x, cands, old, u, psi0, ell=2.0 * K,
+                                       spec=sp),
+            lambda: init.init_sweep_plain(x, cands, old, u, psi0,
+                                          ell=2.0 * K, spec=spec),
+            2.0 * n * INIT_C * d, 4.0 * (n * d + INIT_C * d + 3 * n + n + 1)
+            + n, err_i, diff_i),
+    }
+    launched = {"fused_lloyd": counts["fused_lloyd"],
+                "assign": counts["assign"],
+                "centroid_update": counts["centroid_update"],
+                "init_sweep": counts["init_sweep"]}
+    for name, (run, plain_run, fl, nb, err, ties) in jobs.items():
+        ms = cuda_time_ms(lambda: run(spec), reps=3)
+        ms_32 = cuda_time_ms(lambda: run(None), reps=3)
+        plain_ms = cuda_time_ms(plain_run, reps=1, warmup=1)
+        bound, by = bf16_bound_ms(fl, nb)
+        print(f"[bf16 {name}] kernel {ms:.4f} ms (f32 kernel {ms_32:.4f} "
+              f"ms), plain version {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}, bf16 tensor-core peak; at the f32 CUDA-core peak the "
+              f"product alone takes {fl / PEAK_F32_FLOPS * 1e3:.4f} ms)",
+              flush=True)
+        out[name] = dict(ms=ms, ms_f32=ms_32, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None,
+                         max_abs_err=err, launches=launched[name],
+                         near_tie_labels=ties)
+    return out
+
+
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2007,10 +2435,18 @@ def main() -> int:
         return fail("S1 variants")
     if not phase_merge(torch, main_run):
         return fail("hierarchical merge")
-    reports = (report, batched, res_rep, assign_rep, update_rep, init_rep)
+    bf16 = phase_bf16(torch, main_run)
+    if bf16 is None:
+        return fail("bfloat16 carry and bf16-accumulate kernels")
+    variants = [{"name": r["name"] + "[bf16]", "route": r["route"],
+                 "source": r["source"], "replaces": r["replaces"],
+                 **bf16[r["name"]]}
+                for r in (report, batched, assign_rep, update_rep, init_rep)]
+    reports = (report, batched, res_rep, assign_rep, update_rep, init_rep,
+               *variants)
     kernels = [{key: r[key] for key in KEYS + ("launches_by_path",)
                 if key in r} for r in reports]
-    for r in (report, batched, res_rep, update_rep):
+    for r in (report, batched, res_rep, update_rep, *variants):
         extra = {key: r[key] for key in r if key not in KEYS}
         print(json.dumps({r["name"]: extra}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,7 @@ packages compute the same thing.  ``config_from_reference`` takes the
 reference's ``IPKMeansConfig`` as plain data (``dataclasses.asdict``-style,
 the nested ``KMeansParams`` as a dict), so this module needs nothing from the
 reference package; ``tensors_from_numpy`` turns its numpy inputs into the
-port's tensors.
+port's tensors, in their own dtype (float32 or bfloat16).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.core.ipkmeans import IPKMeansConfig
 from repro_torch.core.kmeans import KMeansParams
-from repro_torch.device import as_f32, resolve_device
+from repro_torch.device import as_float, resolve_device
 
 # reference engine name -> the port's name for the same role
 BACKEND_NAMES = {"jnp": "eager", "pallas": "twopass"}
@@ -55,8 +55,11 @@ def config_from_reference(d: Mapping) -> IPKMeansConfig:
 
 def tensors_from_numpy(points: np.ndarray, init_centroids: np.ndarray,
                        device=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Reference inputs as numpy arrays -> float32 tensors on ``device``
-    (default: CUDA, raising without a card)."""
+    """Reference inputs as numpy arrays -> tensors of the same dtype, float32
+    or bfloat16 (a bfloat16 array, ``ml_dtypes.bfloat16`` as ``np.asarray``
+    of a JAX array gives it, crosses bit for bit), on ``device`` (default:
+    CUDA, raising without a card).  Any other float dtype raises
+    ``TypeError``."""
     dev = resolve_device(device)
-    return as_f32(np.asarray(points), dev), as_f32(np.asarray(init_centroids),
-                                                   dev)
+    return as_float(np.asarray(points), dev), as_float(
+        np.asarray(init_centroids), dev)

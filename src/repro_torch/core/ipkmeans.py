@@ -32,7 +32,7 @@ from repro_torch.core import kdtree, merge, metrics
 from repro_torch.core.init import INIT_METHODS, resolve_init
 from repro_torch.core.kmeans import (KMeansParams, KMeansResult, _init_backend,
                                      check_params, kmeans_batched)
-from repro_torch.device import as_f32, resolve_device
+from repro_torch.device import as_float, resolve_device
 
 REDUCE_MODES = ("exact", "int8ef")
 S1_MODES = ("auto", "sort", "histogram")
@@ -204,6 +204,9 @@ def ipkmeans(points, init_centroids, cfg: IPKMeansConfig, *, draws=None,
     reference draws them with ``jax.random.uniform(key, (n,))`` and
     ``jax.random.permutation(key, n)`` from the key it partitions with);
     without them they come from ``generator``, after the seeding's draws.
+    Float32 or bfloat16 points and seeds: S2 carries the seeds' dtype, the
+    intermediate and final centroids come back in it, and the final SSE in
+    the points' and seeds' dtype, as in the reference.
     Runs on ``device`` (default: CUDA, raising without a card).  Each stage
     is also reachable alone (``_resolve_init_stage``,
     ``_partition_and_pack``, ``kmeans_batched``, ``_merge_stage``), which is
@@ -211,7 +214,7 @@ def ipkmeans(points, init_centroids, cfg: IPKMeansConfig, *, draws=None,
     """
     check_config(cfg)
     dev = resolve_device(device)
-    x = as_f32(points, dev)
+    x = as_float(points, dev)
     init_centroids, cfg = _resolve_init_stage(x, init_centroids, cfg, draws,
                                               generator)
     part, subsets, masks = _partition_and_pack(

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core import metrics
 from repro_torch.core.init import INIT_METHODS, resolve_init
-from repro_torch.device import as_f32, resolve_device
+from repro_torch.device import as_float, as_weights, resolve_device
 from repro_torch.kernels import engine as engines
 from repro_torch.kernels import ref
 
@@ -68,16 +68,18 @@ def lloyd_step(points, centroids, mask=None, backend: str = "eager", *,
 
     ``points (n, d)``, ``centroids (k, d)``, optional ``mask (n,)``: one
     ``engine.step`` on a stack of one lane, then ``divide_or_keep`` (an
-    empty cluster keeps its centroid).  Runs on ``device`` (default: CUDA,
-    raising without a card).
+    empty cluster keeps its centroid) in float32, cast back to the
+    centroids' dtype as the reference does.  Runs on ``device`` (default:
+    CUDA, raising without a card).
     """
     engine = engines.get_engine(backend)
     dev = resolve_device(device)
-    x = as_f32(points, dev)
-    c = as_f32(centroids, dev)
-    w = None if mask is None else as_f32(mask, dev).unsqueeze(0)
+    x = as_float(points, dev)
+    c = as_float(centroids, dev)
+    w = None if mask is None else as_weights(mask, dev).unsqueeze(0)
     sums, counts, shard_sse = engine.step(x.unsqueeze(0), c.unsqueeze(0), w)
-    return ref.divide_or_keep(sums[0], counts[0], c), shard_sse[0]
+    new_c = ref.divide_or_keep(sums[0], counts[0], c.float())
+    return new_c.to(c.dtype), shard_sse[0]
 
 
 def _init_backend(backend: str) -> str:
@@ -93,8 +95,9 @@ def kmeans(points, init_centroids=None, mask=None,
     """Run Lloyd's algorithm to convergence on one subset.
 
     ``points (n, d)``, ``init_centroids (k, d)``, optional ``mask (n,)``
-    (False rows are padding and ignored).  Runs on ``device`` (default:
-    CUDA, raising without a card).
+    (False rows are padding and ignored), float32 or bfloat16; the seeds'
+    dtype is the carry dtype and the centroids come back in it.  Runs on
+    ``device`` (default: CUDA, raising without a card).
 
     With ``params.init`` other than ``"given"`` the seeds are drawn here,
     with the mask as weights: ``init_centroids`` may then be ``None``, ``k``
@@ -103,8 +106,8 @@ def kmeans(points, init_centroids=None, mask=None,
     """
     check_params(params)
     dev = resolve_device(device)
-    x = as_f32(points, dev)
-    w = None if mask is None else as_f32(mask, dev)
+    x = as_float(points, dev)
+    w = None if mask is None else as_weights(mask, dev)
     if params.init != "given":
         kk = k if k is not None else (
             None if init_centroids is None else init_centroids.shape[0])
@@ -117,7 +120,7 @@ def kmeans(points, init_centroids=None, mask=None,
     elif init_centroids is None:
         raise ValueError('init="given" needs init_centroids')
     else:
-        c0 = as_f32(init_centroids, dev)
+        c0 = as_float(init_centroids, dev)
     engine = engines.get_engine(params.backend)
     final_c, total, iters, conv = engine.solve(
         x, c0, w, max_iters=params.max_iters, tol=params.tol,
@@ -134,7 +137,8 @@ def kmeans_batched(subsets, masks, init_centroids,
 
     Empty (all-padding) subsets keep the reference's contract: ASSE = +inf,
     so they never win the min-ASSE merge.  Seeding is the entry points'
-    (``kmeans``, ``ipkmeans``): ``params.init`` must be ``"given"``.
+    (``kmeans``, ``ipkmeans``): ``params.init`` must be ``"given"``.  The
+    centroids come back in the seeds' dtype.
     """
     check_params(params)
     if params.init != "given":
@@ -142,9 +146,9 @@ def kmeans_batched(subsets, masks, init_centroids,
                          f"{params.init!r}): resolve the seeds at the entry "
                          f"point (kmeans / ipkmeans)")
     dev = resolve_device(device)
-    x = as_f32(subsets, dev)
-    c0 = as_f32(init_centroids, dev)
-    w = None if masks is None else as_f32(masks, dev)
+    x = as_float(subsets, dev)
+    c0 = as_float(init_centroids, dev)
+    w = None if masks is None else as_weights(masks, dev)
     engine = engines.get_engine(params.backend)
     final_c, total, iters, conv = engine.solve_batched(
         x, c0, w, max_iters=params.max_iters, tol=params.tol,

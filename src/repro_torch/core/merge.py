@@ -20,8 +20,11 @@ _D2_BLOCK_ELEMS = 1 << 26
 def _sq_sum(diff: torch.Tensor) -> torch.Tensor:
     """``sum(diff ** 2)`` over the last dimension by halving (zero-padded
     to a power of two): the same additions in the same order on every
-    device, where ``torch.sum``'s order depends on the device's kernel."""
-    v = diff * diff
+    device, where ``torch.sum``'s order depends on the device's kernel.
+    The squares are in ``diff``'s dtype; the additions run in float32 and
+    the result is rounded once back to it, as the reference's bfloat16
+    sums are."""
+    v = (diff * diff).float()
     d = v.shape[-1]
     width = 1 << max(0, d - 1).bit_length()
     if width != d:
@@ -29,7 +32,7 @@ def _sq_sum(diff: torch.Tensor) -> torch.Tensor:
     while v.shape[-1] > 1:
         half = v.shape[-1] // 2
         v = v[..., :half] + v[..., half:]
-    return v[..., 0]
+    return v[..., 0].to(diff.dtype)
 
 
 def _pair_sq_dists(c: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core import metrics
 from repro_torch.core.kmeans import KMeansParams, check_params
-from repro_torch.device import as_f32, resolve_device
+from repro_torch.device import as_float, as_weights, resolve_device
 from repro_torch.kernels import engine as engines
 
 
@@ -41,20 +41,22 @@ def pkmeans(points, init_centroids, mask=None,
     lane, ``divide_or_keep``, with ``reseed_empty`` the reseed of empty
     clusters (budget ``min(k, n)``), then ``centroid_shift``
     (``LloydEngine.lloyd_loop`` on a stack of one).  The final SSE is
-    ``metrics.sse`` over the dataset.  Runs on ``device`` (default: CUDA,
+    ``metrics.sse`` over the dataset.  Float32 or bfloat16 inputs; the
+    seeds' dtype is the carry dtype, and the centroids and the SSE come
+    back in it, as in the reference.  Runs on ``device`` (default: CUDA,
     raising without a card).
     """
     check_params(params)
     dev = resolve_device(device)
-    x = as_f32(points, dev)
-    c0 = as_f32(init_centroids, dev)
-    w = None if mask is None else as_f32(mask, dev)
+    x = as_float(points, dev)
+    c0 = as_float(init_centroids, dev)
+    w = None if mask is None else as_weights(mask, dev)
     engine = engines.get_engine(params.backend)
     c, iters, shift = engine.lloyd_loop(
         x.unsqueeze(0), c0, None if w is None else w.unsqueeze(0),
         max_iters=params.max_iters, tol=params.tol,
         reseed_empty=params.reseed_empty)
-    final = c[0]
+    final = c[0].to(c0.dtype)
     total = metrics.sse(x, final, None if w is None else w != 0.0)
     return PKMeansResult(final, total, iters[0], shift[0] <= params.tol)
 

@@ -7,11 +7,14 @@ version, and ``resident`` the same kernel on one subset; ``assign``,
 ``centroid_update`` and ``init`` the assign, centroid-update and k-means||
 init-sweep kernels (``csrc/sweeps.cu``); ``ops`` wraps them; ``engine`` is
 the backend registry (``eager`` | ``twopass`` | ``fused`` | ``resident`` |
-``batched``).  Importing this package needs no GPU and no compiler: the
-CUDA sources are built at the first launch on a CUDA tensor (``_build``).
+``batched``); ``specs`` the ``KernelSpec`` every single-pass wrapper takes
+as ``spec=`` and the card's ``DeviceProfile``.  Importing this package
+needs no GPU and no compiler: the CUDA sources are built at the first
+launch on a CUDA tensor (``_build``).
 """
 from repro_torch.kernels import (assign, batch_resident, centroid_update,
-                                 engine, fused, init, ops, ref, resident)
+                                 engine, fused, init, ops, ref, resident,
+                                 specs)
 
 __all__ = ["assign", "batch_resident", "centroid_update", "engine", "fused",
-           "init", "ops", "ref", "resident"]
+           "init", "ops", "ref", "resident", "specs"]

@@ -24,6 +24,13 @@ On a CUDA tensor :func:`lloyd_solve_batched` launches the kernel (built at
 first use) or raises; on a CPU tensor it runs :func:`lloyd_solve_plain`,
 the same function in plain PyTorch.  Nothing is padded: the kernel masks the
 ragged edges itself.
+
+Subsets and seeds may be float32 or bfloat16.  The carry dtype is the
+seeds': with bfloat16 seeds every divided centroid and every reseed pick is
+rounded to bfloat16 before the shift is taken (the kernel's ``CARRY_BF16``
+instantiation; the plain version the same), as the reference's kernels
+round each trip's centroids through the carry dtype, and the centroids come
+back in it.  The points are widened to float32 once, exactly.
 """
 from __future__ import annotations
 
@@ -35,8 +42,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import ref
-from repro_torch.kernels.fused import _SMEM_PER_BLOCK
+from repro_torch.device import FLOAT_DTYPES
+from repro_torch.kernels import ref, specs
 from repro_torch.kernels.resident import bound_block_rows, check_prune
 
 # Kernel launches since the last reset; only the CUDA path counts.
@@ -133,12 +140,14 @@ class ClusterPlan(NamedTuple):
 
 
 def batched_feasible(s: int, d: int, k: int, prune: str = "none",
-                     bound_block: int | None = None) -> bool:
+                     bound_block: int | None = None, device=None) -> bool:
     """Does a lane of ``s`` points against ``k`` centroids fit one block's
-    shared memory?  ``d`` does not enter: the score pass walks it in
+    shared memory on ``device`` (``specs.get_profile``: the card's, or the
+    H100's for the CPU)?  ``d`` does not enter: the score pass walks it in
     chunks."""
     del d
-    return smem_bytes(s, k, prune, bound_block) <= _SMEM_PER_BLOCK
+    return specs.get_profile(device).fits(smem_bytes(s, k, prune,
+                                                     bound_block))
 
 
 def _scores(x, x2, c):
@@ -150,12 +159,13 @@ def _scores(x, x2, c):
 
 
 def _solve_plain_chunk(x, c0, w, *, max_iters, tol, reseed_empty, bb, nb,
-                       skips):
+                       skips, carry):
     """One chunk of lanes.  Every trip computes every lane of the chunk and
     keeps the results of the active ones (the reference kernel's
     ``where(active, ...)``), so each matrix product has the same batch shape
     on every trip and rounds a lane's sums the same way whichever lanes are
-    still active."""
+    still active.  The divided centroids and the reseed picks round-trip
+    the ``carry`` dtype."""
     from repro_torch.core.metrics import centroid_shift
     m, s, _ = x.shape
     k = c0.shape[0]
@@ -191,7 +201,7 @@ def _solve_plain_chunk(x, c0, w, *, max_iters, tol, reseed_empty, bb, nb,
             idx = torch.where(act, lab, idx)
             margin = torch.where(act & ~skip_b, fresh, margin)
         sums, counts = ref.centroid_update_ref(x, lab, w, k)
-        new_c = ref.divide_or_keep(sums, counts, c)
+        new_c = ref.divide_or_keep(sums, counts, c).to(carry).float()
         if reseed_empty:
             empty = counts <= 0.0
             fire = torch.any(empty, dim=1) & active
@@ -199,7 +209,8 @@ def _solve_plain_chunk(x, c0, w, *, max_iters, tol, reseed_empty, bb, nb,
                 _, _, _, mind = _scores(x, x2, new_c)
                 score = torch.where(w > 0.0, mind, -torch.inf)
                 take, picks = ref.reseed_farthest(x, score, empty, kk)
-                new_c = torch.where(take.unsqueeze(-1), picks, new_c)
+                new_c = torch.where(take.unsqueeze(-1),
+                                    picks.to(carry).float(), new_c)
                 passes += fire.to(torch.int32)
         new_shift = centroid_shift(new_c, c)
         if nb:
@@ -226,7 +237,8 @@ def lloyd_solve_plain(subsets, centroids, weights=None, *,
     skipping; a lane that stops keeps its state.  Scores are ``||c||^2 -
     2 x.c`` as in the kernel, lowest index on ties.  The pruned trip
     computes every score and selects the cached labels of skipped blocks,
-    which gives the skipping kernel's result."""
+    which gives the skipping kernel's result.  The centroids come back in
+    the seeds' dtype, the carry dtype of every trip."""
     check_prune(prune)
     m, s, _ = subsets.shape
     k = centroids.shape[0]
@@ -238,19 +250,21 @@ def lloyd_solve_plain(subsets, centroids, weights=None, *,
     skips = torch.zeros((max(int(max_iters), 1), 2), dtype=torch.int32,
                         device=x.device)
     step = max(1, ref.PLAIN_SCORE_ELEMS // max(1, s * k))
+    carry = centroids.dtype
     parts = [_solve_plain_chunk(x[lo:lo + step], c0, w[lo:lo + step],
                                 max_iters=max_iters, tol=tol,
                                 reseed_empty=reseed_empty, bb=bb, nb=nb,
-                                skips=skips)
+                                skips=skips, carry=carry)
              for lo in range(0, m, step)]
     if not parts:
         dev = x.device
-        return SolveOut(x.new_empty((0, k, x.shape[2])), x.new_empty((0,)),
+        return SolveOut(torch.empty((0, k, x.shape[2]), dtype=carry,
+                                    device=dev), x.new_empty((0,)),
                         torch.empty(0, dtype=torch.int32, device=dev),
                         torch.empty(0, dtype=torch.bool, device=dev), skips,
                         torch.empty(0, dtype=torch.int32, device=dev))
     c, sse, it, conv, passes = (torch.cat(p) for p in zip(*parts))
-    return SolveOut(c, sse, it, conv, skips, passes)
+    return SolveOut(c.to(carry), sse, it, conv, skips, passes)
 
 
 _fn = None
@@ -265,40 +279,43 @@ def _kernel():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.lloyd_solve
         fn.argtypes = ([p, p, p, i, i, i, i, i, ctypes.c_float]
-                       + [i] * 3 + [p, i] + [p] * 15)
+                       + [i] * 4 + [p, i] + [p] * 15)
         fn.restype = ctypes.c_int
         cl = lib.lloyd_solve_clusters
-        cl.argtypes = [i] * 4 + [p]
+        cl.argtypes = [i] * 5 + [p]
         cl.restype = ctypes.c_int
         _fn, _clusters_fn = fn, cl
     return _fn
 
 
 @functools.lru_cache(maxsize=None)
-def _card_clusters(device: int, k: int, nb: int, bounds: bool,
+def _card_clusters(device: int, k: int, nb: int, bounds: bool, bf16: bool,
                    r: int) -> tuple[int, int]:
     """(CUDA error, clusters of ``r`` blocks the card holds at once) for
     this kernel's configuration on card ``device``."""
     _kernel()
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = _clusters_fn(k, nb, int(bounds), r, ctypes.addressof(n))
+        err = _clusters_fn(k, nb, int(bounds), int(bf16), r,
+                           ctypes.addressof(n))
     return err, n.value
 
 
 def cluster_plan(m: int, s: int, k: int, prune: str = "none",
                  bound_block: int | None = None, *, device=None,
-                 cluster: int | None = None) -> ClusterPlan:
+                 cluster: int | None = None,
+                 bf16: bool = False) -> ClusterPlan:
     """R for a stack of ``m`` lanes of ``s`` points against ``k`` centroids
     on a card (:func:`cluster_size` on what the card reports), or the forced
-    ``cluster``.  Raises when the card refuses the cluster shape; it never
-    falls back to a smaller R."""
+    ``cluster``; ``bf16``: the kernel's bfloat16-carry instantiation.
+    Raises when the card refuses the cluster shape; it never falls back to
+    a smaller R."""
     bb, nb = _bound_blocks(s, prune, bound_block)
     dev = torch.device("cuda" if device is None else device)
     idx = torch.cuda.current_device() if dev.index is None else dev.index
 
     def query(r):
-        return _card_clusters(idx, k, nb, bb > 0, r)
+        return _card_clusters(idx, k, nb, bb > 0, bf16, r)
 
     answers = {r: query(r) for r in CLUSTER_SIZES}
     fits = {r: 0 if err else n for r, (err, n) in answers.items()}
@@ -330,6 +347,8 @@ def _launch(x, c0, w, *, max_iters, tol, reseed_empty, prune, bound_block,
     if not all(t.is_contiguous() for t in (x, c0, w)):
         raise ValueError("the whole-solve kernel takes contiguous tensors")
     bb, nb = _bound_blocks(s, prune, bound_block)
+    carry_bf16 = c0.dtype == torch.bfloat16
+    x, c0, w = x.float(), c0.float(), w.float()
 
     def i32(*shape):
         return torch.empty(shape, dtype=torch.int32, device=dev)
@@ -340,8 +359,9 @@ def _launch(x, c0, w, *, max_iters, tol, reseed_empty, prune, bound_block,
     c, sse, iters, conv, passes = f32(m, k, d), f32(m), i32(m), i32(m), i32(m)
     skips = torch.zeros((max(int(max_iters), 1), 2), dtype=torch.int32,
                         device=dev)
+    carry = torch.bfloat16 if carry_bf16 else torch.float32
     if m == 0:
-        return SolveOut(c, sse, iters, conv.bool(), skips, passes)
+        return SolveOut(c.to(carry), sse, iters, conv.bool(), skips, passes)
     # per-lane workspace, in device memory: labels, distances, the sort
     # order, the (k, d) sums and (k,) counts, and the bound state
     labels, mind, order = i32(m, s), f32(m, s), i32(m, s)
@@ -355,13 +375,13 @@ def _launch(x, c0, w, *, max_iters, tol, reseed_empty, prune, bound_block,
 
     fn = _kernel()
     plan = cluster_plan(m, s, k, prune, bound_block, device=dev,
-                        cluster=cluster)
+                        cluster=cluster, bf16=carry_bf16)
     rows = (ctypes.c_int * len(plan.rows))(*plan.rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(x), ptr(c0), ptr(w), m, s, d, k, int(max_iters),
                  float(tol), int(bool(reseed_empty)), bb, nb,
-                 ctypes.addressof(rows), plan.r,
+                 int(carry_bf16), ctypes.addressof(rows), plan.r,
                  ptr(c), ptr(labels), ptr(mind), ptr(gap), ptr(order),
                  ptr(sums), ptr(counts), ptr(margin), ptr(dacc), ptr(sse),
                  ptr(iters), ptr(conv), ptr(passes), ptr(skips), stream)
@@ -373,7 +393,7 @@ def _launch(x, c0, w, *, max_iters, tol, reseed_empty, prune, bound_block,
         resident.launches += 1
     else:
         launches += 1
-    return SolveOut(c, sse, iters, conv.bool(), skips, passes)
+    return SolveOut(c.to(carry), sse, iters, conv.bool(), skips, passes)
 
 
 def _check(x, c0, w):
@@ -391,9 +411,9 @@ def _check(x, c0, w):
     if any(t.device != x.device for t in tensors):
         raise ValueError("subsets, centroids and weights must share one "
                          "device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("the whole-solve kernel takes float32 subsets, "
-                        "centroids and weights")
+    if any(t.dtype not in FLOAT_DTYPES for t in tensors):
+        raise TypeError("the whole-solve kernel takes float32 or bfloat16 "
+                        "subsets, centroids and weights")
 
 
 def solve_stack(subsets, centroids, weights=None, *, max_iters: int = 300,
@@ -412,12 +432,14 @@ def solve_stack(subsets, centroids, weights=None, *, max_iters: int = 300,
     check_prune(prune)
     _check(subsets, centroids, weights)
     s, k = subsets.shape[1], centroids.shape[0]
-    if not batched_feasible(s, subsets.shape[2], k, prune, bound_block):
+    if not batched_feasible(s, subsets.shape[2], k, prune, bound_block,
+                            subsets.device):
         raise ValueError(f"k={k} clusters (S={s}, prune={prune!r}) exceed "
                          f"the whole-solve kernel's shared-memory budget: "
                          f"{smem_bytes(s, k, prune, bound_block)} > "
-                         f"{_SMEM_PER_BLOCK} bytes a block (the fused "
-                         f"engine takes a larger k)")
+                         f"{specs.get_profile(subsets.device).smem_per_block}"
+                         f" bytes a block (the fused engine takes a larger "
+                         f"k)")
     kw = dict(max_iters=max_iters, tol=tol, reseed_empty=reseed_empty,
               prune=prune, bound_block=bound_block)
     if subsets.device.type == "cpu":
@@ -439,8 +461,8 @@ def lloyd_solve_batched(subsets, centroids, weights=None, *,
                         return_skips: bool = False):
     """A whole stack of Lloyd solves in one launch: ``subsets (M,S,d)``,
     the shared seeds ``centroids (k,d)``, ``weights (M,S)`` or ``None`` ->
-    (centroids (M,k,d) f32, sse (M,), iters (M,) i32, converged (M,)
-    bool[, skips (max_iters,2) i32]).
+    (centroids (M,k,d) in the seeds' dtype, sse (M,) f32, iters (M,) i32,
+    converged (M,) bool[, skips (max_iters,2) i32]).
 
     Every lane is bit-for-bit the one-lane solve of
     :func:`repro_torch.kernels.resident.lloyd_solve_resident`.  ``skips``

@@ -20,6 +20,15 @@ bit given the same labels, and a repeat launch gives the same bits.  A cluster t
 holds most of a lane is summed by one warp: the bits require it.  A build
 or launch failure raises.  On a CPU tensor it runs the plain version,
 ``ref.centroid_update_ref`` over chunks of lanes and rows.
+
+Points and weights may be float32 or bfloat16; sums and counts are float32.
+``spec`` (``UPDATE_DEFAULT_SPEC`` when ``None``) with
+``acc_dtype="bfloat16"`` gives the reference's bf16 kernel: points and
+weights rounded, each cluster's partial sum over a block of ``bn`` rows of
+the point order rounded and the partials added in float32 in block order
+(``ref.bf16_block_sums``; ``bn`` the spec's ``update_tile_shapes`` block).
+The sum pass does this in point order as it goes, so the bfloat16 sums
+keep the kernel's other properties.
 """
 from __future__ import annotations
 
@@ -28,8 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import ref
-from repro_torch.kernels.fused import _SMEM_PER_BLOCK
+from repro_torch.kernels import ref, specs
 
 # Kernel launches since the last reset; only the CUDA path counts.
 launches = 0
@@ -69,10 +77,11 @@ def chunk_plan(n_lanes: int, s: int, sms: int,
     return ChunkPlan(rows, chunks, -(-chunks // CHUNK_SEG))
 
 
-def check_k(k: int, what: str):
-    """Raise for a k whose counts do not fit one block's shared memory: the
-    histogram and scatter passes keep k ints there (k <= 58,112)."""
-    if k * 4 > _SMEM_PER_BLOCK:
+def check_k(k: int, what: str, device=None):
+    """Raise for a k whose counts do not fit one block's shared memory on
+    ``device`` (``specs.get_profile``): the histogram and scatter passes
+    keep k ints there (k <= 58,112 on the H100)."""
+    if not specs.get_profile(device).fits(k * 4):
         raise ValueError(f"k={k} clusters exceed {what}'s shared-memory "
                          f"budget (a chunk's k counts)")
 
@@ -111,24 +120,38 @@ def _check(x, labels, w, k, lanes):
     if any(t.device != x.device for t in (labels, w, lanes)):
         raise ValueError("points, labels, weights and lanes must share one "
                          "device")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError("the centroid update takes float32 points and "
-                        "weights")
+    if any(t.dtype not in (torch.float32, torch.bfloat16) for t in (x, w)):
+        raise TypeError("the centroid update takes float32 or bfloat16 "
+                        "points and weights")
     if labels.dtype != torch.int32:
         raise TypeError("the centroid update takes int32 labels")
 
 
-def centroid_update_plain(x, labels, w, k, lanes):
+def centroid_update_plain(x, labels, w, k, lanes, spec=None):
     """The kernel's function in plain PyTorch: the reference's one-hot
     product, over chunks of lanes that bound the ``(lanes, S, k)`` one-hot,
     and over chunks of rows, their sums added in row order, where one
-    lane's ``(S, k)`` one-hot alone would pass that bound."""
+    lane's ``(S, k)`` one-hot alone would pass that bound; with a bfloat16
+    ``spec``, ``ref.bf16_block_sums``."""
+    spec = specs.coerce(spec, default=specs.UPDATE_DEFAULT_SPEC)
     _, s, d = x.shape
+    if spec.bf16:
+        sel = lanes.long()
+        bn = spec.update_tile_shapes(s, d, k)[0]
+        step = max(1, ref.PLAIN_SCORE_ELEMS // max(1, bn * k))
+        outs = [ref.bf16_block_sums(x[sel[lo:lo + step]].float(),
+                                    labels[lo:lo + step],
+                                    w[sel[lo:lo + step]].float(), k, bn)
+                for lo in range(0, sel.numel(), step)]
+        if not outs:
+            return (torch.zeros((0, k, d), device=x.device),
+                    torch.zeros((0, k), device=x.device))
+        return tuple(torch.cat(parts) for parts in zip(*outs))
     rows = max(1, ref.PLAIN_SCORE_ELEMS // k)
     if s > rows:
         parts = [centroid_update_plain(x[:, lo:lo + rows],
                                        labels[:, lo:lo + rows],
-                                       w[:, lo:lo + rows], k, lanes)
+                                       w[:, lo:lo + rows], k, lanes, spec)
                  for lo in range(0, s, rows)]
         sums, counts = parts[0]
         for part_sums, part_counts in parts[1:]:
@@ -141,7 +164,8 @@ def centroid_update_plain(x, labels, w, k, lanes):
                                     w[sel[lo:lo + step]], k)
             for lo in range(0, sel.numel(), step)]
     if not outs:
-        return x.new_zeros((0, k, d)), x.new_zeros((0, k))
+        return (torch.zeros((0, k, d), device=x.device),
+                torch.zeros((0, k), device=x.device))
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
@@ -154,20 +178,24 @@ def _kernel():
         from repro_torch.kernels import _build
         fn = _build.load(SOURCE).centroid_update
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p] + [i] * 7 + [p] * 7
+        fn.argtypes = [p] * 4 + [i] * 7 + [p] * 6 + [i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _launch(x, labels, w, k, lanes, chunk_rows):
+def _launch(x, labels, w, k, lanes, chunk_rows, spec):
     global launches
     _, s, d = x.shape
     n_l = lanes.numel()
     if not all(t.is_contiguous() for t in (x, labels, w, lanes)):
         raise ValueError("the centroid-update kernel takes contiguous tensors")
-    check_k(k, "the centroid update")
     dev = x.device
+    check_k(k, "the centroid update", dev)
+    # the kernel reads float32; in bfloat16 mode it rounds points and
+    # weights itself
+    x, w = x.float(), w.float()
+    bn = spec.update_tile_shapes(s, d, k)[0] if spec.bf16 else 0
     sums = torch.empty((n_l, k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((n_l, k), dtype=torch.float32, device=dev)
     if n_l == 0:
@@ -181,7 +209,7 @@ def _launch(x, labels, w, k, lanes, chunk_rows):
                         labels.data_ptr(), n_l, s, d, k, plan.rows,
                         plan.chunks, plan.segs, hist.data_ptr(),
                         seg.data_ptr(), start.data_ptr(), order.data_ptr(),
-                        sums.data_ptr(), counts.data_ptr(), stream)
+                        sums.data_ptr(), counts.data_ptr(), bn, stream)
     if err != 0:
         raise RuntimeError(f"centroid-update kernel launch failed with CUDA "
                            f"error {err}")
@@ -190,7 +218,7 @@ def _launch(x, labels, w, k, lanes, chunk_rows):
 
 
 def centroid_update(points, labels, weights, k: int, lanes=None, *,
-                    chunk_rows: int | None = None):
+                    chunk_rows: int | None = None, spec=None):
     """Weighted per-cluster sums and counts.
 
     One subset: ``points (n,d)``, ``labels (n,)`` int32, ``weights (n,)`` ->
@@ -208,25 +236,28 @@ def centroid_update(points, labels, weights, k: int, lanes=None, *,
     chunks of 1984 rows) 8.7 MB and 4.2 MB; one lane of 2^23 rows at k =
     4100 (4096 chunks of 2048 rows) 67.2 MB and 33.6 MB.  ``chunk_rows``
     forces the chunk size C of :func:`chunk_plan` (a multiple of 32); it
-    changes no bit.  k is at most 58,112: the histogram and scatter passes
-    keep k counts in one block's shared memory.
+    changes no bit.  k is at most the card's shared memory per block over
+    4 (58,112 on the H100): the histogram and scatter passes keep k counts
+    in one block's shared memory.  ``spec``: the kernel's ``KernelSpec``
+    (``UPDATE_DEFAULT_SPEC`` when ``None``).
     """
     k = int(k)
+    spec = specs.coerce(spec, default=specs.UPDATE_DEFAULT_SPEC)
     if points.dim() == 2:
         if lanes is not None:
             raise ValueError("lanes apply to a (M,S,d) stack only")
         sums, counts = centroid_update(points.unsqueeze(0),
                                        labels.unsqueeze(0),
                                        weights.unsqueeze(0), k,
-                                       chunk_rows=chunk_rows)
+                                       chunk_rows=chunk_rows, spec=spec)
         return sums[0], counts[0]
     if lanes is None:
         lanes = torch.arange(points.shape[0], dtype=torch.int32,
                              device=points.device)
     _check(points, labels, weights, k, lanes)
     if points.device.type == "cpu":
-        return centroid_update_plain(points, labels, weights, k, lanes)
+        return centroid_update_plain(points, labels, weights, k, lanes, spec)
     if points.device.type != "cuda":
         raise ValueError(f"the centroid update runs on cuda or cpu, not "
                          f"{points.device.type}")
-    return _launch(points, labels, weights, k, lanes, chunk_rows)
+    return _launch(points, labels, weights, k, lanes, chunk_rows, spec)

@@ -41,6 +41,13 @@
 //     against the 256 bytes a point the product reads at d = 64), and the
 //     wrapper may return them (`return_labels`).
 //   * no padding of d, S or k: every ragged edge is masked in the kernels.
+//   * bfloat16 (KernelSpec.acc_dtype="bfloat16": `bf16`, and `bn` the rows
+//     of the reference's blocks): the bfloat16 score of sweeps.cu's assign
+//     (lloyd_device.cuh, score_tile<., true>), ||x||^2 of the rounded
+//     points added back as the reference's flush does, the SSE weighted by
+//     bfloat16-rounded weights, and the accumulate's bfloat16 partial sums
+//     over blocks of bn rows (segment_sort.cuh).  The f32 kernels are
+//     unchanged.
 //   * the scoring and the reduction are device functions in lloyd_device.cuh,
 //     shared with the whole-solve kernel (lloyd_solve.cu) and the assign and
 //     centroid-update kernels (sweeps.cu), so that a lane of those kernels
@@ -61,17 +68,23 @@ using lloyd::BM;
 using lloyd::NT;
 constexpr int NORM_THREADS = 256;
 
+// rnd != 0: each norm rounded to bfloat16
 __global__ void __launch_bounds__(NORM_THREADS)
 centroid_norms_kernel(const float* __restrict__ c,
-                      const int* __restrict__ lanes, int k, int d,
+                      const int* __restrict__ lanes, int k, int d, int rnd,
                       float* __restrict__ cn) {
   const int g = blockIdx.y;
   const int j0 = blockIdx.x * NORM_THREADS;
+  float* out = cn + (long long)g * k + j0;
   lloyd::centroid_norms<NORM_THREADS>(
       c + ((long long)lanes[g] * k + j0) * d, min(NORM_THREADS, k - j0), d,
-      cn + (long long)g * k + j0);
+      out);
+  // the thread that wrote out[threadIdx.x] rounds it
+  if (rnd && j0 + (int)threadIdx.x < k)
+    out[threadIdx.x] = lloyd::round_bf16(out[threadIdx.x]);
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(NT, 2)
 assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
               const float* __restrict__ cn, const int* __restrict__ lanes,
@@ -81,22 +94,24 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
   const int g = blockIdx.y;
   const long long lane = lanes[g];
   const long long o = (long long)g * S;
-  lloyd::score_tile<false>(x + lane * S * (long long)d,
-                           c + lane * k * (long long)d, cn + (long long)g * k,
-                           S, d, k, blockIdx.x * BM, sm, labels + o, mind + o,
-                           nullptr, nullptr, nullptr, 0);
+  lloyd::score_tile<false, BF16>(x + lane * S * (long long)d,
+                                 c + lane * k * (long long)d,
+                                 cn + (long long)g * k, S, d, k,
+                                 blockIdx.x * BM, sm, labels + o, mind + o,
+                                 nullptr, nullptr, nullptr, 0);
 }
 
 // sse[g] = sum_i w_i mind_i over lane lanes[g]: block_weighted_sum's
 // fixed-shape tree, one block a lane
 constexpr int SSE_THREADS = 1024;
 
+template <bool BF16>
 __global__ void __launch_bounds__(SSE_THREADS)
 sse_kernel(const float* __restrict__ w, const int* __restrict__ lanes,
            const float* __restrict__ mind, int S, float* __restrict__ sse) {
   __shared__ float red[SSE_THREADS];
   const int g = blockIdx.x;
-  const float total = lloyd::block_weighted_sum<SSE_THREADS>(
+  const float total = lloyd::block_weighted_sum<SSE_THREADS, BF16>(
       w + (long long)lanes[g] * S, mind + (long long)g * S, S, red);
   if (threadIdx.x == 0) sse[g] = total;
 }
@@ -106,25 +121,38 @@ sse_kernel(const float* __restrict__ w, const int* __restrict__ lanes,
 // One fused step of the listed lanes; with assign_only it stops at labels
 // and mind, and takes no weights, chunk plan or workspaces.  Otherwise
 // segment_sums's chunk plan (C, chunks, segs) and workspaces (hist, seg,
-// start, order) come from the caller.
+// start, order) come from the caller.  bn > 0 is the bfloat16 mode, the
+// accumulate's blocks bn rows.
 extern "C" int fused_lloyd(const float* x, const float* c, const float* w,
                            const int* lanes, int L, int S, int d, int k,
                            float* cn, int* labels, float* mind, int C,
                            int chunks, int segs, int* hist, int* seg,
                            int* start, int* order, float* sums,
-                           float* counts, float* sse, int assign_only,
+                           float* counts, float* sse, int assign_only, int bn,
                            void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;
+  const bool bf16 = bn > 0;
   centroid_norms_kernel<<<dim3((k + NORM_THREADS - 1) / NORM_THREADS, L),
-                          NORM_THREADS, 0, stream>>>(c, lanes, k, d, cn);
+                          NORM_THREADS, 0, stream>>>(
+      c, lanes, k, d, (int)bf16, cn);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  assign_kernel<<<dim3((S + BM - 1) / BM, L), NT, 0, stream>>>(
-      x, c, cn, lanes, S, d, k, labels, mind);
+  const dim3 grid((S + BM - 1) / BM, L);
+  if (bf16) {
+    assign_kernel<true><<<grid, NT, 0, stream>>>(x, c, cn, lanes, S, d, k,
+                                                 labels, mind);
+  } else {
+    assign_kernel<false><<<grid, NT, 0, stream>>>(x, c, cn, lanes, S, d, k,
+                                                  labels, mind);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (assign_only) return 0;
-  sse_kernel<<<L, SSE_THREADS, 0, stream>>>(w, lanes, mind, S, sse);
+  if (bf16) {
+    sse_kernel<true><<<L, SSE_THREADS, 0, stream>>>(w, lanes, mind, S, sse);
+  } else {
+    sse_kernel<false><<<L, SSE_THREADS, 0, stream>>>(w, lanes, mind, S, sse);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)segment_sums(x, w, lanes, labels, L, S, d, k, C, chunks, segs,
-                           hist, seg, start, order, sums, counts, stream);
+                           hist, seg, start, order, sums, counts, bn, stream);
 }

@@ -27,6 +27,14 @@
 //     sums with cluster_sums's arithmetic, so its sums are these bit for
 //     bit.
 //   * block_weighted_sum: the lane's SSE as a fixed-shape tree.
+//   * bfloat16 (KernelSpec.acc_dtype="bfloat16", template flags BF16):
+//     round_bf16 rounds a float to the nearest bfloat16 (ties to even) and
+//     widens it back, exactly.  score_tile<., true> rounds each point and
+//     centroid value to bfloat16 as it lands in shared memory (round_chunk,
+//     the thread's own copies), sums each dot product over the whole of d
+//     in f32 as the f32 path does, rounds it to bfloat16, and rounds
+//     cn[j] - 2 dot (cn rounded by the caller) to bfloat16: the reference's
+//     bf16 score.  The f32 instantiations are unchanged.
 //
 // Arrays that the whole-solve kernel writes while it runs (centroids,
 // labels, distances) are not marked __restrict__, so that no load of them
@@ -34,10 +42,16 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace lloyd {
+
+// v rounded to the nearest bfloat16 (ties to even), as a float
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 constexpr int BM = 128;   // points per tile
 constexpr int BN = 128;   // centroids per tile
@@ -109,6 +123,21 @@ __device__ __forceinline__ void stage_chunk(const float* xa, const float* cb,
   }
 }
 
+// Round the elements of buffer b that this thread staged (stage_chunk's
+// map: column tx of rows ty + 16q) to bfloat16, in place.  They are its own
+// copies, visible to it once cp_async_wait_all returns; the caller's
+// barrier then shows them to the group.
+__device__ __forceinline__ void round_chunk(ScoreTiles& sm, int b) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x % NT / 16;
+#pragma unroll
+  for (int q = 0; q < BM / 16; ++q) {
+    const int r = ty + 16 * q;
+    sm.As[b][tx][r] = round_bf16(sm.As[b][tx][r]);
+    sm.Bs[b][tx][r] = round_bf16(sm.Bs[b][tx][r]);
+  }
+}
+
 // ||c_j||^2 for j < k, one thread per centroid, sequential over d (read
 // four at a time where the rows are 16-byte aligned)
 template <int NTH>
@@ -144,16 +173,20 @@ __device__ void centroid_norms(const float* cl, int k, int d, float* cn) {
 // For each valid row it writes, where the
 // pointer is given and the row's pruning block is not skipped
 // (skipb == nullptr, or skipb[row / bb] == 0):
-//   labels[row] = argmin_j (cn[j] - 2 x.c_j), lowest j on ties;
-//   mind[row]   = max(best + ||x||^2, 0);
+//   labels[row] = argmin_j (cn[j] - 2 x.c_j), lowest j on ties (BF16: the
+//                 bfloat16 score of the header);
+//   mind[row]   = max(best + ||x||^2, 0), ||x||^2 summed in f32 over the
+//                 rows of xn as given (xn == nullptr: of xl, rounded to
+//                 bfloat16 in BF16 mode as the score reads them);
 //   gap[row]    = sqrt(max(second + ||x||^2, 0)) - sqrt(max(best + ||x||^2,
 //                 0)) where wl[row] > 0, +inf elsewhere (SECOND only).
-template <bool SECOND>
+template <bool SECOND, bool BF16 = false>
 __device__ void score_tile(const float* __restrict__ xl, const float* cl,
                            const float* cn, int S, int d, int k, int row0,
                            ScoreTiles& sm, int* labels, float* mind,
                            float* gap, const float* wl, const int* skipb,
-                           int bb, int bar = 0) {
+                           int bb, int bar = 0,
+                           const float* __restrict__ xn = nullptr) {
   const int tid = threadIdx.x % NT;
   const int tx = tid % 16;
   const int ty = tid / 16;
@@ -194,6 +227,7 @@ __device__ void score_tile(const float* __restrict__ xl, const float* cl,
       jn += BN;
     }
     cp_async_wait_all();
+    if (BF16) round_chunk(sm, buf);
     // this chunk is in buffer buf for every thread, and every thread is
     // done with the previous one, so buffer buf ^ 1 may be refilled; the
     // copies of the next chunk are issued after the first FMAs, so that the
@@ -232,7 +266,9 @@ __device__ void score_tile(const float* __restrict__ xl, const float* cl,
           const float cv = cn[col];
 #pragma unroll
           for (int i = 0; i < TM; ++i) {
-            const float sc = cv - 2.f * acc[i][j];
+            const float sc =
+                BF16 ? round_bf16(cv - 2.f * round_bf16(acc[i][j]))
+                     : cv - 2.f * acc[i][j];
             if (sc < best[i]) {
               if (SECOND) second[i] = best[i];
               best[i] = sc;
@@ -285,9 +321,12 @@ __device__ void score_tile(const float* __restrict__ xl, const float* cl,
   }
   const int row = row0 + ty * TM + tx;
   if (tx < TM && row < S && (skipb == nullptr || skipb[row / bb] == 0)) {
-    const float* xr = xl + (long long)row * d;
+    const float* xr = (xn == nullptr ? xl : xn) + (long long)row * d;
     float x2 = 0.f;
-    for (int t = 0; t < d; ++t) x2 = fmaf(xr[t], xr[t], x2);
+    for (int t = 0; t < d; ++t) {
+      const float v = BF16 && xn == nullptr ? round_bf16(xr[t]) : xr[t];
+      x2 = fmaf(v, v, x2);
+    }
     if (labels != nullptr) labels[row] = bi;
     if (mind != nullptr) mind[row] = fmaxf(bv + x2, 0.f);
     if (SECOND) {
@@ -301,14 +340,19 @@ __device__ void score_tile(const float* __restrict__ xl, const float* cl,
 // sum_i wl[i] * md[i] over i < S: strided partial sums of the block's first
 // NTH threads, then a fixed-shape tree in red[NTH] (the other threads only
 // wait at the barriers).  Every thread gets the total.  Starts and ends
-// with a barrier, so red may be reused around it.
-template <int NTH>
+// with a barrier, so red may be reused around it.  BF16W: each weight
+// rounded to bfloat16 first, as the reference's bf16 fused kernel weights
+// its SSE.
+template <int NTH, bool BF16W = false>
 __device__ float block_weighted_sum(const float* __restrict__ wl,
                                     const float* md, int S, float* red) {
   const int tid = threadIdx.x;
   float part = 0.f;
   if (tid < NTH) {
-    for (int i = tid; i < S; i += NTH) part = fmaf(wl[i], md[i], part);
+    for (int i = tid; i < S; i += NTH) {
+      const float wi = BF16W ? round_bf16(wl[i]) : wl[i];
+      part = fmaf(wi, md[i], part);
+    }
   }
   __syncthreads();
   if (tid < NTH) red[tid] = part;

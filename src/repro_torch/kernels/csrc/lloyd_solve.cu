@@ -90,6 +90,11 @@
 //     so the pruned solve is bit-for-bit the exact one.  Skip counters are
 //     integer atomics, summed over blocks and lanes, per trip.
 //   * division, sqrt and the stop test are IEEE f32 (no fast-math flags).
+//   * bfloat16 carry (template flag CARRY_BF16: seeds given in bfloat16, the
+//     points widened to f32 by the wrapper, exactly): each divided centroid
+//     and each reseed pick is rounded to bfloat16 before the shift is
+//     taken, as the reference's kernels round every trip's centroids and
+//     picks through the carry dtype.  The f32 instantiations are unchanged.
 //
 // Plain C interface, loaded with ctypes: `lloyd_solve` returns the first
 // non-zero CUDA error of the launch, 0 on success; `lloyd_solve_clusters`
@@ -98,6 +103,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "lloyd_device.cuh"
 
@@ -270,7 +277,7 @@ __host__ __device__ inline int tile_words(int k) {
 //     norms are computed again;
 //   * under BOUNDS, one skip flag per pruning block (nb; a block fills only
 //     its own).
-template <bool BOUNDS>
+template <bool BOUNDS, bool CARRY_BF16>
 __global__ void __launch_bounds__(ST, 1)
 solve_kernel(const float* __restrict__ x, const float* __restrict__ c0,
              const float* __restrict__ w, int S, int d, int k, int max_iters,
@@ -413,7 +420,8 @@ solve_kernel(const float* __restrict__ x, const float* __restrict__ c0,
         float acc = 0.f;
         for (int t = 0; t < d; ++t) {
           const long long e = (long long)j * d + t;
-          const float nv = sl[e] / fmaxf(n, 1.f);
+          float nv = sl[e] / fmaxf(n, 1.f);
+          if (CARRY_BF16) nv = lloyd::round_bf16(nv);
           const float df = nv - cl[e];
           acc = fmaf(df, df, acc);
           cl[e] = nv;
@@ -458,11 +466,13 @@ solve_kernel(const float* __restrict__ x, const float* __restrict__ c0,
           float* cj = cl + (long long)j * d;
           float acc = 0.f;
           for (int t = 0; t < d; ++t) {
-            const float df = xr[t] - cj[t];
+            const float xv = CARRY_BF16 ? lloyd::round_bf16(xr[t]) : xr[t];
+            const float df = xv - cj[t];
             acc = fmaf(df, df, acc);
           }
           tmax = fmaxf(tmax, sqrtf(acc));
-          for (int t = 0; t < d; ++t) cj[t] = xr[t];
+          for (int t = 0; t < d; ++t)
+            cj[t] = CARRY_BF16 ? lloyd::round_bf16(xr[t]) : xr[t];
         }
         if (r >= lo && r < hi) {
           // the taken row was this block's: its next best
@@ -516,18 +526,19 @@ solve_kernel(const float* __restrict__ x, const float* __restrict__ c0,
 
 // the launch configuration of clusters of R blocks; sets the kernel's
 // shared-memory and cluster-size attributes
-template <bool BOUNDS>
+template <bool BOUNDS, bool CARRY_BF16>
 cudaError_t configure(int k, int nb, int R, unsigned grid,
                       cudaStream_t stream, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr) {
   const size_t smem =
       ((size_t)tile_words(k) + k + (BOUNDS ? nb : 0)) * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
-      solve_kernel<BOUNDS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      solve_kernel<BOUNDS, CARRY_BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   if (R > 8) {
-    err = cudaFuncSetAttribute(solve_kernel<BOUNDS>,
+    err = cudaFuncSetAttribute(solve_kernel<BOUNDS, CARRY_BF16>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     if (err != cudaSuccess) return err;
@@ -558,7 +569,7 @@ bool valid_split(const int* rows, int R, int S, int bb, RowSplit* split) {
   return true;
 }
 
-template <bool BOUNDS>
+template <bool BOUNDS, bool CARRY_BF16>
 int launch(const float* x, const float* c0, const float* w, int M, int S,
            int d, int k, int max_iters, float tol, int reseed, int bb, int nb,
            const int* rows, int R, float* c, int* labels, float* mind,
@@ -570,10 +581,11 @@ int launch(const float* x, const float* c0, const float* w, int M, int S,
   if (!valid_split(rows, R, S, bb, &split)) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<BOUNDS>(k, nb, R, (unsigned)(M * R), stream,
-                                      &cfg, &attr);
+  cudaError_t err = configure<BOUNDS, CARRY_BF16>(
+      k, nb, R, (unsigned)(M * R), stream, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, solve_kernel<BOUNDS>, x, c0, w, S, d, k,
+  err = cudaLaunchKernelEx(&cfg, solve_kernel<BOUNDS, CARRY_BF16>, x, c0, w,
+                           S, d, k,
                            max_iters, tol, reseed, bb, nb, split, c, labels,
                            mind, gap, order, sums, counts, margin, dacc, sse,
                            iters, conv, passes, skips);
@@ -581,14 +593,16 @@ int launch(const float* x, const float* c0, const float* w, int M, int S,
   return (int)cudaGetLastError();
 }
 
-template <bool BOUNDS>
+template <bool BOUNDS, bool CARRY_BF16>
 int clusters(int k, int nb, int R, int* n) {
   if (R < 1 || R > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<BOUNDS>(k, nb, R, (unsigned)R, 0, &cfg, &attr);
+  cudaError_t err =
+      configure<BOUNDS, CARRY_BF16>(k, nb, R, (unsigned)R, 0, &cfg, &attr);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveClusters(n, solve_kernel<BOUNDS>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(
+        n, solve_kernel<BOUNDS, CARRY_BF16>, &cfg);
   }
   // a refused shape is this call's answer: leave no error for the next
   // launch's check to find
@@ -598,37 +612,46 @@ int clusters(int k, int nb, int R, int* n) {
 
 }  // namespace
 
-// bb > 0 turns on prune="bounds" with pruning blocks of bb rows, nb of them
-// a lane; gap, margin and dacc may be null otherwise.  R blocks a lane (a
-// cluster); block r of a cluster owns the lane's rows [rows[r], rows[r +
-// 1]), rows a host array of R + 1 entries from 0 to S, each but the last a
-// multiple of bb under pruning (else cudaErrorInvalidValue).
+// bb > 0 turns on prune="bounds"; with pruning blocks of bb rows, nb of them
+// a lane; gap, margin and dacc may be null otherwise.  carry_bf16 != 0 rounds
+// the carry to bfloat16 (CARRY_BF16).  R blocks a lane (a cluster); block r
+// of a cluster owns the lane's rows [rows[r], rows[r + 1]), rows a host
+// array of R + 1 entries from 0 to S, each but the last a multiple of bb
+// under pruning (else cudaErrorInvalidValue).
 extern "C" int lloyd_solve(const float* x, const float* c0, const float* w,
                            int M, int S, int d, int k, int max_iters,
                            float tol, int reseed, int bb, int nb,
-                           const int* rows, int R, float* c, int* labels,
-                           float* mind, float* gap, int* order, float* sums,
-                           float* counts, float* margin, float* dacc,
-                           float* sse, int* iters, int* conv, int* passes,
-                           int* skips, void* stream_ptr) {
+                           int carry_bf16, const int* rows, int R, float* c,
+                           int* labels, float* mind, float* gap, int* order,
+                           float* sums, float* counts, float* margin,
+                           float* dacc, float* sse, int* iters, int* conv,
+                           int* passes, int* skips, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (bb > 0) {
-    return launch<true>(x, c0, w, M, S, d, k, max_iters, tol, reseed, bb, nb,
-                        rows, R, c, labels, mind, gap, order, sums,
-                        counts, margin, dacc, sse, iters, conv, passes, skips,
-                        stream);
-  }
-  return launch<false>(x, c0, w, M, S, d, k, max_iters, tol, reseed, 0, 0,
-                       rows, R, c, labels, mind, gap, order, sums,
-                       counts, margin, dacc, sse, iters, conv, passes, skips,
-                       stream);
+  auto run = [&](auto bounds, auto carry) {
+    constexpr bool B = decltype(bounds)::value;
+    constexpr bool C = decltype(carry)::value;
+    return launch<B, C>(x, c0, w, M, S, d, k, max_iters, tol, reseed,
+                        B ? bb : 0, B ? nb : 0, rows, R, c, labels, mind, gap,
+                        order, sums, counts, margin, dacc, sse, iters, conv,
+                        passes, skips, stream);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (bb > 0) return carry_bf16 ? run(T{}, T{}) : run(T{}, F{});
+  return carry_bf16 ? run(F{}, T{}) : run(F{}, F{});
 }
 
 // how many clusters of R blocks the card holds at once for this k and nb
-// (bounds != 0: the pruning kernel) into *n; 0 on success, else the CUDA
-// error (a cluster size the card refuses)
-extern "C" int lloyd_solve_clusters(int k, int nb, int bounds, int R,
-                                    int* n) {
+// (bounds != 0: the pruning kernel; carry_bf16 != 0: the bfloat16 carry)
+// into *n; 0 on success, else the CUDA error (a cluster size the card
+// refuses)
+extern "C" int lloyd_solve_clusters(int k, int nb, int bounds, int carry_bf16,
+                                    int R, int* n) {
   *n = 0;
-  return bounds ? clusters<true>(k, nb, R, n) : clusters<false>(k, nb, R, n);
+  if (bounds) {
+    return carry_bf16 ? clusters<true, true>(k, nb, R, n)
+                      : clusters<true, false>(k, nb, R, n);
+  }
+  return carry_bf16 ? clusters<false, true>(k, nb, R, n)
+                    : clusters<false, false>(k, nb, R, n);
 }

@@ -35,12 +35,22 @@
 // read once, 4*d bytes for d multiply-adds, far below the f32 ridge).  The
 // limit that the bits impose: a cluster that holds most of a lane is summed
 // by one warp in point order (about 100 ns a row on the H100, PERF.md).
-// k is at most 232,448 / 4 = 58,112: the histogram and scatter passes keep
-// k counts in one block's shared memory.
+// k is at most 232,448 / 4 = 58,112 on the H100: the histogram and scatter
+// passes keep k counts in one block's shared memory.
+//
+// bfloat16 accumulate (bn > 0, KernelSpec.acc_dtype="bfloat16"): the sum
+// pass rounds each point and weight to bfloat16, and cuts each cluster's
+// rows, in point order, at every multiple of bn rows of the lane (the
+// reference's blocks of bn rows): the weighted partial sum of a block is
+// summed in f32, rounded to bfloat16, and the partials are added in f32 in
+// block order; the counts are the blocks' f32 partials added in block
+// order.  bn = 0 is the f32 pass, whose code and bits are unchanged.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "lloyd_device.cuh"
 
 namespace {
 
@@ -246,11 +256,15 @@ update_scatter_kernel(const int* __restrict__ labels,
 // w = 0 and x = 0, and fmaf(0, 0, acc) is acc (acc is never -0: it starts
 // at +0, and a sum that is exactly zero rounds to +0), so the bits are
 // cluster_sums's.
+// BF16 (bn > 0): the bfloat16 accumulate of the header; a block change is
+// the same for the whole warp (every lane reads the same row), so the
+// flushes do not diverge, and a row past the cluster's end starts no block.
+template <bool BF16>
 __global__ void __launch_bounds__(SUM_THREADS)
 update_sum_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   const int* __restrict__ lanes,
                   const int* __restrict__ order,
-                  const int* __restrict__ start, int S, int d, int k,
+                  const int* __restrict__ start, int S, int d, int k, int bn,
                   float* __restrict__ sums, float* __restrict__ counts) {
   const int j = blockIdx.x * (SUM_THREADS / 32) + threadIdx.x / 32;
   if (j >= k) return;
@@ -272,6 +286,11 @@ update_sum_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float acc = 0.f;
     float acc2 = 0.f;
     float cnt = 0.f;
+    // BF16: the finished blocks' totals, and the block acc/acc2/cnt sum
+    float tot = 0.f;
+    float tot2 = 0.f;
+    float ctot = 0.f;
+    int cur = -1;
     // indices two groups ahead; weights and (in a big cluster) rows one
     int n = min(32, end - beg);
     int mi = lid < n ? ord[beg + lid] : 0;
@@ -289,6 +308,7 @@ update_sum_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const float mw1 = lid < n1 ? wl[mi1] : 0.f;
       for (int q0 = 0; q0 < n; q0 += SUM_AHEAD) {
         float v[SUM_AHEAD], v2[SUM_AHEAD];
+        int blk[SUM_AHEAD];
 #pragma unroll
         for (int u = 0; u < SUM_AHEAD; ++u) {
           const int q = q0 + u;
@@ -296,10 +316,25 @@ update_sum_kernel(const float* __restrict__ x, const float* __restrict__ w,
           const float* xr = xl + (long long)i * d;
           v[u] = q < n && ok ? xr[t] : 0.f;
           v2[u] = q < n && ok2 ? xr[t2] : 0.f;
+          if (BF16) {
+            v[u] = lloyd::round_bf16(v[u]);
+            v2[u] = lloyd::round_bf16(v2[u]);
+            blk[u] = q < n ? i / bn : -1;
+          }
         }
 #pragma unroll
         for (int u = 0; u < SUM_AHEAD; ++u) {
-          const float wi = __shfl_sync(0xffffffffu, mw, q0 + u);
+          float wi = __shfl_sync(0xffffffffu, mw, q0 + u);
+          if (BF16) {
+            if (blk[u] >= 0 && blk[u] != cur) {
+              tot += lloyd::round_bf16(acc);
+              tot2 += lloyd::round_bf16(acc2);
+              ctot += cnt;
+              acc = acc2 = cnt = 0.f;
+              cur = blk[u];
+            }
+            wi = lloyd::round_bf16(wi);
+          }
           cnt += wi;
           acc = fmaf(wi, v[u], acc);
           acc2 = fmaf(wi, v2[u], acc2);
@@ -310,6 +345,11 @@ update_sum_kernel(const float* __restrict__ x, const float* __restrict__ w,
       mw = mw1;
       n1 = n2;
       mi1 = mi2;
+    }
+    if (BF16) {
+      acc = tot + lloyd::round_bf16(acc);
+      acc2 = tot2 + lloyd::round_bf16(acc2);
+      cnt = ctot + cnt;
     }
     if (ok) srow[t] = acc;
     if (ok2) srow[t2] = acc2;
@@ -322,13 +362,15 @@ update_sum_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // here) and the workspaces hist (L, chunks, k), seg (L, segs, k), start
 // (L, k + 1) and order (L, S) ints, all from the caller.  Row g of labels
 // (L, S) sorts lane lanes[g] of x (M, S, d) and w (M, S) into row g of sums
-// (L, k, d) and counts (L, k).  Returns the first error of a launch.
+// (L, k, d) and counts (L, k); bn > 0 is the bfloat16 accumulate over
+// blocks of bn rows.  Returns the first error of a launch.
 cudaError_t segment_sums(const float* x, const float* w, const int* lanes,
                          const int* labels, int L, int S, int d, int k,
                          int C, int chunks, int segs, int* hist, int* seg,
                          int* start, int* order, float* sums, float* counts,
-                         cudaStream_t stream) {
+                         int bn, cudaStream_t stream) {
   if (L < 1 || L > 65535 || S < 1 || d < 1 || k < 1 || C < 32 || C % 32 != 0
+      || bn < 0
       || (long long)chunks != ((long long)S + C - 1) / C
       || segs != (chunks + CHUNK_SEG - 1) / CHUNK_SEG || segs > 65535)
     return cudaErrorInvalidValue;
@@ -357,10 +399,14 @@ cudaError_t segment_sums(const float* x, const float* w, const int* lanes,
   update_scatter_kernel<<<dim3(chunks, L), SCATTER_THREADS, smem, stream>>>(
       labels, hist, seg, start, S, k, C, segs, order);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  update_sum_kernel<<<dim3((k + SUM_THREADS / 32 - 1) / (SUM_THREADS / 32),
-                           L),
-                      SUM_THREADS, 0, stream>>>(x, w, lanes, order, start, S,
-                                                d, k, sums, counts);
+  const dim3 grid((k + SUM_THREADS / 32 - 1) / (SUM_THREADS / 32), L);
+  if (bn > 0) {
+    update_sum_kernel<true><<<grid, SUM_THREADS, 0, stream>>>(
+        x, w, lanes, order, start, S, d, k, bn, sums, counts);
+  } else {
+    update_sum_kernel<false><<<grid, SUM_THREADS, 0, stream>>>(
+        x, w, lanes, order, start, S, d, k, 0, sums, counts);
+  }
   return cudaGetLastError();
 }
 

@@ -52,6 +52,18 @@
 //     (c = 0) the minimum is +inf and mind is left as it was.
 //   * every offset into x, c and the per-lane buffers is 64-bit: at the
 //     seeding's shapes n*d = 2^29 and k*d is about 1.05M.
+//   * bfloat16 (KernelSpec.acc_dtype="bfloat16"; `bf16` of assign and
+//     init_sweep, `bn` > 0 of centroid_update): the same kernels with the
+//     reference's bf16 rounding points.  The wrappers pass points and
+//     centroids as the caller gave them (bfloat16 widened to f32): the
+//     centroid norms are summed in f32 from them and rounded to bfloat16;
+//     score_tile<., true> rounds each operand as it loads it, sums each dot
+//     product over d in f32 on the FMA pipes and rounds it, and so each
+//     score; the assign adds ||x||^2 of the caller's points, the init sweep
+//     of the rounded ones, as the reference's kernels do; the update rounds
+//     its points and weights and each block's partial sums
+//     (segment_sort.cuh).  The product stays on the CUDA cores: the
+//     tensor-core route is speed work for later.
 //
 // Plain C interface, loaded with ctypes: each entry returns the first
 // non-zero cudaGetLastError() after its launches, 0 on success.
@@ -70,10 +82,11 @@ constexpr int NORM_THREADS = 256;
 constexpr int PSI_THREADS = 1024;
 
 // ||c_j||^2 of the listed lanes' centroids (lanes == nullptr: lane 0), +inf
-// where valid[j] == 0 (valid == nullptr: every centroid is valid)
+// where valid[j] == 0 (valid == nullptr: every centroid is valid), rounded
+// to bfloat16 where rnd != 0
 __global__ void __launch_bounds__(NORM_THREADS)
 norms_kernel(const float* __restrict__ c, const int* __restrict__ lanes,
-             const unsigned char* __restrict__ valid, int k, int d,
+             const unsigned char* __restrict__ valid, int k, int d, int rnd,
              float* __restrict__ cn) {
   const int g = blockIdx.y;
   const int j0 = blockIdx.x * NORM_THREADS;
@@ -84,26 +97,32 @@ norms_kernel(const float* __restrict__ c, const int* __restrict__ lanes,
   const int j = j0 + threadIdx.x;
   // the thread that wrote out[threadIdx.x] overrides it
   if (valid != nullptr && j < k && valid[j] == 0) out[threadIdx.x] = INFINITY;
+  if (rnd && j < k) out[threadIdx.x] = lloyd::round_bf16(out[threadIdx.x]);
 }
 
+// xn: the points whose ||x||^2 the distances add back, as given (the bf16
+// mode passes x; nullptr: x, rounded in the bf16 mode)
+template <bool BF16>
 __global__ void __launch_bounds__(NT, 2)
-assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
-              const float* __restrict__ cn, const int* __restrict__ lanes,
-              int S, int d, int k, int* __restrict__ labels,
-              float* __restrict__ mind) {
+assign_kernel(const float* __restrict__ x, const float* __restrict__ xn,
+              const float* __restrict__ c, const float* __restrict__ cn,
+              const int* __restrict__ lanes, int S, int d, int k,
+              int* __restrict__ labels, float* __restrict__ mind) {
   __shared__ lloyd::ScoreTiles sm;
   const int g = blockIdx.y;
   const long long lane = lanes[g];
   const long long o = (long long)g * S;
-  lloyd::score_tile<false>(x + lane * S * (long long)d,
-                           c + lane * k * (long long)d, cn + (long long)g * k,
-                           S, d, k, blockIdx.x * BM, sm, labels + o, mind + o,
-                           nullptr, nullptr, nullptr, 0);
+  lloyd::score_tile<false, BF16>(
+      x + lane * S * (long long)d, c + lane * k * (long long)d,
+      cn + (long long)g * k, S, d, k, blockIdx.x * BM, sm, labels + o,
+      mind + o, nullptr, nullptr, nullptr, 0, 0,
+      xn == nullptr ? nullptr : xn + lane * S * (long long)d);
 }
 
 // new_mind is written by score_tile (the candidate minimum) and read back
 // after a barrier by other threads of the block: not __restrict__, so no
 // load of it goes through the non-coherent cache
+template <bool BF16>
 __global__ void __launch_bounds__(NT, 2)
 init_sweep_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   const float* __restrict__ cn,
@@ -115,8 +134,8 @@ init_sweep_kernel(const float* __restrict__ x, const float* __restrict__ c,
   __shared__ lloyd::ScoreTiles sm;
   __shared__ float red[NT];
   const int row0 = blockIdx.x * BM;
-  lloyd::score_tile<false>(x, c, cn, n, d, nc, row0, sm, nullptr, new_mind,
-                           nullptr, nullptr, nullptr, 0);
+  lloyd::score_tile<false, BF16>(x, c, cn, n, d, nc, row0, sm, nullptr,
+                                 new_mind, nullptr, nullptr, nullptr, 0);
   __syncthreads();
   const int row = row0 + threadIdx.x;
   if (threadIdx.x < BM && row < n) {
@@ -151,51 +170,69 @@ psi_kernel(const float* __restrict__ partial, int nb,
 
 }  // namespace
 
+// bf16 != 0: the bfloat16 score, the distances adding back ||x||^2 of the
+// points as given
 extern "C" int assign(const float* x, const float* c, const int* lanes,
-                      int L, int S, int d, int k, float* cn, int* labels,
-                      float* mind, void* stream_ptr) {
+                      int L, int S, int d, int k, int bf16, float* cn,
+                      int* labels, float* mind, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;
   norms_kernel<<<dim3((k + NORM_THREADS - 1) / NORM_THREADS, L),
-                 NORM_THREADS, 0, stream>>>(c, lanes, nullptr, k, d, cn);
+                 NORM_THREADS, 0, stream>>>(c, lanes, nullptr, k, d, bf16,
+                                            cn);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  assign_kernel<<<dim3((S + BM - 1) / BM, L), NT, 0, stream>>>(
-      x, c, cn, lanes, S, d, k, labels, mind);
+  const dim3 grid((S + BM - 1) / BM, L);
+  if (bf16) {
+    assign_kernel<true><<<grid, NT, 0, stream>>>(x, x, c, cn, lanes, S, d, k,
+                                                 labels, mind);
+  } else {
+    assign_kernel<false><<<grid, NT, 0, stream>>>(x, nullptr, c, cn, lanes,
+                                                  S, d, k, labels, mind);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return 0;
 }
 
 // The centroid update of the listed lanes: segment_sums's six passes, with
-// its chunk plan and workspaces from the caller.
+// its chunk plan and workspaces from the caller; bn > 0 is the bfloat16
+// accumulate over blocks of bn rows.
 extern "C" int centroid_update(const float* x, const float* w,
                                const int* lanes, const int* labels, int L,
                                int S, int d, int k, int C, int chunks,
                                int segs, int* hist, int* seg, int* start,
-                               int* order, float* sums, float* counts,
+                               int* order, float* sums, float* counts, int bn,
                                void* stream_ptr) {
   return (int)segment_sums(x, w, lanes, labels, L, S, d, k, C, chunks, segs,
-                           hist, seg, start, order, sums, counts,
+                           hist, seg, start, order, sums, counts, bn,
                            static_cast<cudaStream_t>(stream_ptr));
 }
 
+// bf16 != 0: the bfloat16 score
 extern "C" int init_sweep(const float* x, const float* c,
-                          const unsigned char* valid, const float* old_mind,
-                          const float* u, const float* w,
-                          const float* psi_prev, float ell, int n, int d,
-                          int nc, float* cn, float* new_mind,
-                          unsigned char* sampled, float* partial, float* psi,
-                          void* stream_ptr) {
+                          const unsigned char* valid,
+                          const float* old_mind, const float* u,
+                          const float* w, const float* psi_prev, float ell,
+                          int n, int d, int nc, int bf16, float* cn,
+                          float* new_mind, unsigned char* sampled,
+                          float* partial, float* psi, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;
   if (nc > 0) {
     norms_kernel<<<dim3((nc + NORM_THREADS - 1) / NORM_THREADS, 1),
-                   NORM_THREADS, 0, stream>>>(c, nullptr, valid, nc, d, cn);
+                   NORM_THREADS, 0, stream>>>(c, nullptr, valid, nc, d,
+                                              bf16, cn);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   const int nb = (n + BM - 1) / BM;
-  init_sweep_kernel<<<nb, NT, 0, stream>>>(x, c, cn, old_mind, u, w,
-                                           psi_prev, ell, n, d, nc, new_mind,
-                                           sampled, partial);
+  if (bf16) {
+    init_sweep_kernel<true><<<nb, NT, 0, stream>>>(
+        x, c, cn, old_mind, u, w, psi_prev, ell, n, d, nc, new_mind, sampled,
+        partial);
+  } else {
+    init_sweep_kernel<false><<<nb, NT, 0, stream>>>(
+        x, c, cn, old_mind, u, w, psi_prev, ell, n, d, nc, new_mind, sampled,
+        partial);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   psi_kernel<<<1, PSI_THREADS, 0, stream>>>(partial, nb, psi);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -24,6 +24,14 @@ then the centroid-update kernel, two launches per Lloyd trip), ``fused``
 whole-solve kernel, one launch per stack).  ``tuned`` raises
 ``NotImplementedError`` naming the slice that ports it, and the reference's
 ``pallas`` names the port's ``twopass``.
+Points may be float32 or bfloat16, and the seeds' dtype is the carry
+dtype, as in the reference: the per-step loop keeps its state in float32
+but rounds each trip's centroids and reseed picks to the seeds' dtype
+before the shift, the whole-solve kernels do the same on the card, and
+``solve``/``solve_batched`` return the seeds' dtype.
+``resolve_spec`` is the hook through which a ``KernelSpec`` reaches the
+kernels (``None``: each kernel's module default); only the still-unported
+``tuned`` engine would override it.
 ``prune="bounds"`` is accepted everywhere: the whole-solve kernels skip
 score passes with it, and the per-step engines run their exact loop, which
 gives the same result.  Past the whole-solve kernel's shared memory,
@@ -74,12 +82,13 @@ def _all_lanes(points, lanes):
 
 
 def reseed_empty_clusters(engine: "LloydEngine", points, weights,
-                          centroids, counts, lanes=None):
+                          centroids, counts, lanes=None, carry=None):
     """Re-seed zero-count centroids at the farthest in-subset points.
 
     ``centroids`` is the whole ``(M,k,d)`` stack; ``counts (L,k)`` has one row
     per listed lane.  The ``e``-th empty cluster of a lane takes its
-    ``e``-th farthest point (``ref.reseed_rows``).  Only lanes with an empty
+    ``e``-th farthest point (``ref.reseed_rows``), rounded through the
+    ``carry`` dtype when one is given.  Only lanes with an empty
     cluster are scored, one assign launch for all of them; the reference's
     ``lax.cond`` is a select under vmap, so lanes without one keep their
     centroids either way.  The candidate budget is ``min(k, S)`` with ``S``
@@ -103,7 +112,10 @@ def reseed_empty_clusters(engine: "LloydEngine", points, weights,
     score = torch.where(w > 0.0, mind, -torch.inf)
     take, rows = ref.reseed_rows(score, emp, kk)
     picks = points[sel.unsqueeze(1), rows]                       # (Ln,k,d)
-    centroids[sel] = torch.where(take.unsqueeze(-1), picks, centroids[sel])
+    if carry is not None:
+        picks = picks.to(carry)
+    centroids[sel] = torch.where(take.unsqueeze(-1), picks.float(),
+                                 centroids[sel])
     return centroids
 
 
@@ -119,6 +131,13 @@ class LloydEngine:
     def assign(self, points, centroids, lanes=None):
         raise NotImplementedError
 
+    def resolve_spec(self, points, centroids):
+        """The ``KernelSpec`` for this launch shape, or ``None`` for each
+        kernel's module default (``specs.DEFAULT_SPEC`` and
+        ``UPDATE_DEFAULT_SPEC``).  ``step`` and ``assign`` pass it to the
+        kernels; the tuning slice's ``tuned`` engine overrides it."""
+        return None
+
     def sse(self, points, centroids, weights=None, lanes=None):
         """Weighted SSE per lane; default: one ``assign`` pass."""
         lanes = _all_lanes(points, lanes)
@@ -130,8 +149,8 @@ class LloydEngine:
     def solve(self, points, init_centroids, weights=None, *,
               max_iters: int, tol: float, reseed_empty: bool = False,
               prune: str = "none"):
-        """Lloyd to convergence on one subset -> (centroids (k,d), sse (),
-        iters () i32, converged () bool)."""
+        """Lloyd to convergence on one subset -> (centroids (k,d) in the
+        seeds' dtype, sse (), iters () i32, converged () bool)."""
         c, s, it, conv = self.solve_batched(
             points.unsqueeze(0), init_centroids,
             None if weights is None else weights.unsqueeze(0),
@@ -142,8 +161,8 @@ class LloydEngine:
     def solve_batched(self, subsets, init_centroids, weights=None, *,
                       max_iters: int, tol: float, reseed_empty: bool = False,
                       prune: str = "none"):
-        """A stack of solves: (M,S,d),(k,d)[,(M,S)] -> (centroids (M,k,d),
-        sse (M,), iters (M,) i32, converged (M,) bool).
+        """A stack of solves: (M,S,d),(k,d)[,(M,S)] -> (centroids (M,k,d)
+        in the seeds' dtype, sse (M,), iters (M,) i32, converged (M,) bool).
 
         The host loop ``lloyd_loop``, then one more pass per lane for the
         SSE.  ``prune`` is validated only: a host loop has no block state to
@@ -153,7 +172,8 @@ class LloydEngine:
         c, iters, shift = self.lloyd_loop(
             subsets, init_centroids, weights, max_iters=max_iters, tol=tol,
             reseed_empty=reseed_empty)
-        return c, self.sse(subsets, c, weights), iters, shift <= tol
+        return (c.to(init_centroids.dtype), self.sse(subsets, c, weights),
+                iters, shift <= tol)
 
     def lloyd_loop(self, subsets, init_centroids, weights=None, *,
                    max_iters: int, tol: float, reseed_empty: bool = False):
@@ -170,11 +190,18 @@ class LloydEngine:
         One host sync per trip (the active-lane list).  It always steps,
         so on ``resident`` and ``batched`` it drives the fused ``step``:
         this is their fallback loop and PKMeans's loop (a stack of one).
+
+        The state is float32, but each trip's divided centroids and reseed
+        picks are rounded to the seeds' dtype (the carry dtype) before the
+        shift, as the reference's loop casts them back to it; bfloat16
+        points are widened once, exactly.
         """
         from repro_torch.core.metrics import centroid_shift
         m = subsets.shape[0]
         dev = subsets.device
         k, d = init_centroids.shape[-2:]
+        carry = init_centroids.dtype
+        subsets = subsets.float()
         # the solve's own state, updated in place: never the caller's seeds
         c = torch.empty((m, k, d), dtype=torch.float32, device=dev)
         c.copy_(init_centroids)
@@ -188,10 +215,10 @@ class LloydEngine:
             sel = lanes.long()
             sums, counts, _ = self.step(subsets, c, weights, lanes)
             old = c[sel]
-            c[sel] = ref.divide_or_keep(sums, counts, old)
+            c[sel] = ref.divide_or_keep(sums, counts, old).to(carry).float()
             if reseed_empty:
                 reseed_empty_clusters(self, subsets, weights, c, counts,
-                                      lanes)
+                                      lanes, carry)
             shift[sel] = centroid_shift(c[sel], old)
             iters[sel] += 1
         return c, iters, shift
@@ -228,15 +255,20 @@ class TwoPassEngine(LloydEngine):
         if weights is None:
             weights = torch.ones(points.shape[:2], dtype=torch.float32,
                                  device=points.device)
-        labels, mind = ops.assign(points, centroids, lanes=lanes)
+        # as the reference: the hook's spec, when it gives one, applies to
+        # both launches
+        spec = self.resolve_spec(points, centroids)
+        labels, mind = ops.assign(points, centroids, lanes=lanes, spec=spec)
         sums, counts = ops.centroid_update(points, labels, weights,
-                                           centroids.shape[1], lanes=lanes)
-        sse = torch.sum(weights[lanes.long()] * mind, dim=1)
+                                           centroids.shape[1], lanes=lanes,
+                                           spec=spec)
+        sse = torch.sum(weights[lanes.long()].float() * mind, dim=1)
         return sums, counts, sse
 
     def assign(self, points, centroids, lanes=None):
         from repro_torch.kernels import ops
-        return ops.assign(points, centroids, lanes=lanes)
+        return ops.assign(points, centroids, lanes=lanes,
+                          spec=self.resolve_spec(points, centroids))
 
 
 class FusedEngine(LloydEngine):
@@ -247,11 +279,14 @@ class FusedEngine(LloydEngine):
 
     def step(self, points, centroids, weights=None, lanes=None):
         from repro_torch.kernels import ops
-        return ops.lloyd_step_fused(points, centroids, weights, lanes=lanes)
+        return ops.lloyd_step_fused(points, centroids, weights, lanes=lanes,
+                                    spec=self.resolve_spec(points, centroids))
 
     def assign(self, points, centroids, lanes=None):
         from repro_torch.kernels import ops
-        return ops.lloyd_assign_fused(points, centroids, lanes=lanes)
+        return ops.lloyd_assign_fused(
+            points, centroids, lanes=lanes,
+            spec=self.resolve_spec(points, centroids))
 
     def sse(self, points, centroids, weights=None, lanes=None):
         # step IS one pass here: its sse output is the cheapest scoring
@@ -284,7 +319,7 @@ class ResidentEngine(FusedEngine):
                   prune=prune)
         n, d = points.shape
         if not resident.resident_feasible(n, d, init_centroids.shape[0],
-                                          prune=prune):
+                                          prune=prune, device=points.device):
             c, s, it, conv = self._fused_loop(
                 points.unsqueeze(0), init_centroids,
                 None if weights is None else weights.unsqueeze(0), **kw)
@@ -323,7 +358,8 @@ class BatchedEngine(ResidentEngine):
                   prune=prune)
         _, s, d = subsets.shape
         if not batch_resident.batched_feasible(s, d, init_centroids.shape[0],
-                                               prune=prune):
+                                               prune=prune,
+                                               device=subsets.device):
             return self._fused_loop(subsets, init_centroids, weights, **kw)
         return ops.lloyd_solve_batched(subsets, init_centroids, weights,
                                        **kw)

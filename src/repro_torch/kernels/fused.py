@@ -17,6 +17,14 @@ The reduction over points is the centroid-update kernel's chunked sort over
 the whole card (``csrc/segment_sort.cuh``, chunk plan and workspaces from
 ``centroid_update``), so its sums and counts are that kernel's bit for bit
 on the same labels, and one lane spreads over every SM.
+
+Points, centroids and weights may be float32 or bfloat16; outputs are
+float32.  ``spec`` (a :class:`~repro_torch.kernels.specs.KernelSpec`,
+``DEFAULT_SPEC`` when ``None``) with ``acc_dtype="bfloat16"`` gives the
+reference's bf16 kernel: the score of ``ref.bf16_scores``, ``||x||^2`` of
+the rounded points, the SSE weighted by rounded weights, and the
+accumulate's partial sums over blocks of ``bn`` rows rounded
+(``ref.bf16_block_sums``, ``bn`` the spec's ``tile_shapes`` block).
 """
 from __future__ import annotations
 
@@ -25,14 +33,13 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import ref, specs
 from repro_torch.kernels.ref import PLAIN_SCORE_ELEMS
 
 # Kernel launches since the last reset; only the CUDA path counts.
 launches = 0
 
 SOURCE = "fused_lloyd.cu"
-# one block's shared memory on Hopper (bytes)
-_SMEM_PER_BLOCK = 232448
 
 
 class StepOut(NamedTuple):
@@ -79,18 +86,41 @@ def _check(x, c, w, lanes, assign_only, what="the fused pass"):
     if any(t.device != x.device for t in tensors):
         raise ValueError("points, centroids, weights and lanes must share "
                          "one device")
-    if any(t.dtype != torch.float32 for t in tensors[:-1]):
-        raise TypeError(f"{what} takes float32 points, centroids and "
-                        f"weights")
+    if any(t.dtype not in (torch.float32, torch.bfloat16)
+           for t in tensors[:-1]):
+        raise TypeError(f"{what} takes float32 or bfloat16 points, "
+                        f"centroids and weights")
     if lanes.dim() != 1 or lanes.dtype != torch.int32:
         raise TypeError("lanes must be a 1-D int32 tensor")
 
 
+def plain_assign(x, c, bf16: bool, x2_rows=None):
+    """Labels and distances of ``x (L,S,d)`` against ``c (L,k,d)`` in plain
+    PyTorch -> ``(labels (L,S) int64, mind (L,S) f32, rows)``: the kernel's
+    score (float32 ``||c||^2 - 2 x.c``, or ``ref.bf16_scores``), the first
+    minimum, ``||x||^2`` of ``x2_rows`` (default: the rows the product
+    read, which come back as ``rows``) added back and clamped at 0."""
+    if bf16:
+        rows = ref.round_bf16(x)
+        scores = ref.bf16_scores(rows, c)
+    else:
+        rows, cs = x.float(), c.float()
+        cn = torch.sum(cs * cs, dim=-1)
+        scores = cn.unsqueeze(1) - 2.0 * (rows @ cs.transpose(1, 2))
+    labels = torch.argmin(scores, dim=-1)
+    best = torch.gather(scores, -1, labels.unsqueeze(-1)).squeeze(-1)
+    xn = rows if x2_rows is None else x2_rows.float()
+    mind = torch.clamp(best + torch.sum(xn * xn, dim=-1), min=0.0)
+    return labels, mind, rows
+
+
 def fused_lloyd_plain(x, c, w=None, lanes=None, *, assign_only=False,
-                      return_labels=False):
+                      return_labels=False, spec=None):
     """The kernel's function in plain PyTorch: same score formula, same
-    tie-break (``torch.argmin`` returns the first minimum), one-hot sums;
-    the outputs of :func:`fused_lloyd` in each mode."""
+    tie-break (``torch.argmin`` returns the first minimum), one-hot sums
+    (with a bfloat16 ``spec``: ``ref.bf16_block_sums``); the outputs of
+    :func:`fused_lloyd` in each mode."""
+    spec = specs.coerce(spec)
     m, s, d = x.shape
     k = c.shape[1]
     if lanes is None:
@@ -101,16 +131,18 @@ def fused_lloyd_plain(x, c, w=None, lanes=None, *, assign_only=False,
     outs = []
     for lo in range(0, lanes.numel(), step):
         sel = lanes[lo:lo + step].long()
-        xs, cs = x[sel], c[sel]
-        cn = torch.sum(cs * cs, dim=-1)
-        scores = cn.unsqueeze(1) - 2.0 * (xs @ cs.transpose(1, 2))
-        labels = torch.argmin(scores, dim=-1)
-        best = torch.gather(scores, -1, labels.unsqueeze(-1)).squeeze(-1)
-        mind = torch.clamp(best + torch.sum(xs * xs, dim=-1), min=0.0)
+        labels, mind, xs = plain_assign(x[sel], c[sel], spec.bf16)
         if assign_only:
             outs.append((labels.to(torch.int32), mind))
             continue
-        ws = w[sel]
+        ws = w[sel].float()
+        if spec.bf16:
+            bn = spec.tile_shapes(s, d, k)[0]
+            sums, counts = ref.bf16_block_sums(xs, labels, ws, k, bn)
+            outs.append((sums, counts,
+                         torch.sum(ref.round_bf16(ws) * mind, dim=-1),
+                         labels.to(torch.int32), mind))
+            continue
         onehot = torch.nn.functional.one_hot(labels, k).float()
         onehot = onehot * ws.unsqueeze(-1)
         outs.append((onehot.transpose(1, 2) @ xs, torch.sum(onehot, dim=1),
@@ -118,11 +150,12 @@ def fused_lloyd_plain(x, c, w=None, lanes=None, *, assign_only=False,
                      mind))
     if not outs:
         labels = torch.empty((0, s), dtype=torch.int32, device=x.device)
+        f32 = dict(dtype=torch.float32, device=x.device)
         if assign_only:
-            return AssignOut(labels, x.new_empty((0, s)))
-        return _step_out(x.new_empty((0, k, d)), x.new_empty((0, k)),
-                         x.new_empty((0,)), labels, x.new_empty((0, s)),
-                         return_labels)
+            return AssignOut(labels, torch.empty((0, s), **f32))
+        return _step_out(torch.empty((0, k, d), **f32),
+                         torch.empty((0, k), **f32), torch.empty((0,), **f32),
+                         labels, torch.empty((0, s), **f32), return_labels)
     cat = [torch.cat(parts) for parts in zip(*outs)]
     return AssignOut(*cat) if assign_only else _step_out(*cat,
                                                          return_labels)
@@ -138,13 +171,13 @@ def _kernel():
         fn = _build.load(SOURCE).fused_lloyd
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 4 + [i] * 4 + [p] * 3 + [i] * 3 + [p] * 7 + [
-            i, p]
+            i, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _launch(x, c, w, lanes, assign_only, return_labels):
+def _launch(x, c, w, lanes, assign_only, return_labels, spec):
     global launches
     from repro_torch.kernels import centroid_update
     m, s, d = x.shape
@@ -154,7 +187,13 @@ def _launch(x, c, w, lanes, assign_only, return_labels):
             w is not None and not w.is_contiguous()):
         raise ValueError("the fused kernel takes contiguous tensors")
     if not assign_only:
-        centroid_update.check_k(k, "the fused step")
+        centroid_update.check_k(k, "the fused step", x.device)
+    # the kernel reads float32 operands (bfloat16 ones widened) and rounds
+    # them itself in the bfloat16 mode, its partials over blocks of bn rows
+    bn = spec.tile_shapes(s, d, k)[0] if spec.bf16 else 0
+    x, c = x.float(), c.float()
+    if w is not None:
+        w = w.float()
     if n_l > 65535:
         raise ValueError(f"{n_l} lanes exceed one launch's grid")
     dev = x.device
@@ -191,10 +230,10 @@ def _launch(x, c, w, lanes, assign_only, return_labels):
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(x), ptr(c), ptr(w), ptr(lanes), n_l, s, d, k, ptr(cn),
-                 ptr(labels), ptr(mind), *plan, ptr(hist), ptr(seg),
-                 ptr(start), ptr(order), *map(ptr, step), int(assign_only),
-                 stream)
+        err = fn(ptr(x), ptr(c), ptr(w), ptr(lanes), n_l, s, d,
+                 k, ptr(cn), ptr(labels), ptr(mind), *plan, ptr(hist),
+                 ptr(seg), ptr(start), ptr(order), *map(ptr, step),
+                 int(assign_only), bn, stream)
     if err != 0:
         raise RuntimeError(f"fused_lloyd kernel launch failed with CUDA "
                            f"error {err}")
@@ -203,7 +242,7 @@ def _launch(x, c, w, lanes, assign_only, return_labels):
 
 
 def fused_lloyd(x, c, w=None, lanes=None, *, assign_only=False,
-                return_labels=False):
+                return_labels=False, spec=None):
     """One fused Lloyd pass over the lanes ``lanes`` of a subset stack.
 
     ``x (M,S,d)``, ``c (M,k,d)``, ``w (M,S)`` (all-ones when ``None``),
@@ -215,18 +254,23 @@ def fused_lloyd(x, c, w=None, lanes=None, *, assign_only=False,
     the same labels and distances bit for bit.  Output row ``g`` belongs to
     lane ``lanes[g]``.
 
+    ``x``, ``c`` and ``w`` may be float32 or bfloat16; ``spec`` is the
+    kernel's ``KernelSpec`` (``DEFAULT_SPEC`` when ``None``; with
+    ``acc_dtype="bfloat16"``, the bf16 kernel of the module docstring).
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel,
-    and a build or launch failure raises.  The step's k is at most 58,112
-    (the accumulate keeps k counts in one block's shared memory; the
-    assign-only mode has no such limit).
+    and a build or launch failure raises.  The step's k is at most the
+    card's shared memory per block over 4 (58,112 on the H100: the
+    accumulate keeps k counts in one block's shared memory; the assign-only
+    mode has no such limit).
     """
+    spec = specs.coerce(spec)
     if lanes is None:
         lanes = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
     _check(x, c, w, lanes, assign_only)
     if x.device.type == "cpu":
         return fused_lloyd_plain(x, c, w, lanes, assign_only=assign_only,
-                                 return_labels=return_labels)
+                                 return_labels=return_labels, spec=spec)
     if x.device.type != "cuda":
         raise ValueError(f"the fused pass runs on cuda or cpu, not "
                          f"{x.device.type}")
-    return _launch(x, c, w, lanes, assign_only, return_labels)
+    return _launch(x, c, w, lanes, assign_only, return_labels, spec)

@@ -18,7 +18,13 @@ a fixed order by a second launch, so a repeat launch gives the same bits.
 memory, so the launch needs no host copy of it; the seeding loop
 (``core/init.py``) still waits once a round, for the rows it drew.  A build
 or launch failure raises.  On a CPU tensor it runs the plain version,
-``ref.init_sweep_ref``.
+``ref.init_sweep_ref`` (:func:`init_sweep_plain` with a bfloat16 spec).
+
+Points and candidates may be float32 or bfloat16.  ``spec``
+(``DEFAULT_SPEC`` when ``None``) with ``acc_dtype="bfloat16"`` gives the
+reference's bf16 kernel: the score of ``ref.bf16_scores`` against the
+candidates' norms as given (``+inf`` for invalid ones), and ``||x||^2`` of
+the rounded points added back; the rest of the round is float32.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, specs
 
 # Kernel launches since the last reset; only the CUDA path counts.
 launches = 0
@@ -52,10 +58,42 @@ def _check(x, c, old_mind, u, w, valid):
     if any(t.device != x.device for t in tensors):
         raise ValueError("every input of the init sweep must share one "
                          "device")
-    if any(t.dtype != torch.float32 for t in (x, c, old_mind, u)) or (
-            w is not None and w.dtype != torch.float32):
-        raise TypeError("the init sweep takes float32 points, candidates, "
-                        "distances, uniforms and weights")
+    if any(t.dtype != torch.float32 for t in (old_mind, u)) or any(
+            t is not None and t.dtype not in (torch.float32, torch.bfloat16)
+            for t in (x, c, w)):
+        raise TypeError("the init sweep takes float32 or bfloat16 points, "
+                        "candidates and weights, and float32 distances and "
+                        "uniforms")
+
+
+def init_sweep_plain(points, cands, old_mind, uniforms, psi_prev, *,
+                     ell: float, cand_valid=None, weights=None, spec=None):
+    """The kernel's function in plain PyTorch: ``ref.init_sweep_ref``, or
+    with a bfloat16 ``spec`` the same round on ``ref.bf16_scores`` (in row
+    chunks) with ``||x||^2`` of the rounded points."""
+    spec = specs.coerce(spec)
+    if not spec.bf16:
+        return ref.init_sweep_ref(points, cands, old_mind, uniforms,
+                                  psi_prev, ell=ell, cand_valid=cand_valid,
+                                  weights=weights)
+    x = ref.round_bf16(points)
+    n, nc = x.shape[0], cands.shape[0]
+    best = torch.full((n,), torch.inf, dtype=torch.float32, device=x.device)
+    if n and nc:
+        valid = (torch.ones(nc, dtype=torch.bool, device=x.device)
+                 if cand_valid is None else cand_valid)
+
+        def block(xs):
+            sc = ref.bf16_scores(xs, cands)
+            return (torch.amin(torch.where(valid, sc, torch.inf), dim=-1),)
+
+        best, = ref.by_row_chunks(block, x, nc)
+    cand_min = torch.clamp(best + torch.sum(x * x, dim=-1), min=0.0)
+    mind = torch.minimum(old_mind.float(), cand_min)
+    w = ref._as_weights(x, weights)
+    pp = torch.as_tensor(psi_prev, dtype=torch.float32, device=x.device)
+    take = (uniforms.float() * pp < ell * mind) & (w > 0.0) & (pp > 0.0)
+    return mind, take, torch.sum(w * mind)
 
 
 _fn = None
@@ -67,20 +105,23 @@ def _kernel():
         from repro_torch.kernels import _build
         fn = _build.load(SOURCE).init_sweep
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, i, i, i, p, p, p,
-                       p, p, p]
+        fn.argtypes = [p] * 7 + [ctypes.c_float] + [i] * 4 + [p] * 6
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _launch(x, c, old_mind, u, pp, ell, w, valid):
+def _launch(x, c, old_mind, u, pp, ell, w, valid, spec):
     global launches
     n, d = x.shape
     nc = c.shape[0]
     dev = x.device
     if w is None:
         w = torch.ones((n,), dtype=torch.float32, device=dev)
+    # the kernel reads float32 operands (bfloat16 ones widened) and rounds
+    # them itself in the bfloat16 mode
+    x, c = x.float(), c.float()
+    w = w.float()
     tensors = [t for t in (x, c, old_mind, u, w, valid) if t is not None]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the init-sweep kernel takes contiguous tensors")
@@ -97,7 +138,8 @@ def _launch(x, c, old_mind, u, pp, ell, w, valid):
         err = _kernel()(x.data_ptr(), c.data_ptr(),
                         None if valid is None else valid.data_ptr(),
                         old_mind.data_ptr(), u.data_ptr(), w.data_ptr(),
-                        pp.data_ptr(), ell, n, d, nc, cn.data_ptr(),
+                        pp.data_ptr(), ell, n, d, nc, int(spec.bf16),
+                        cn.data_ptr(),
                         new_mind.data_ptr(), sampled.data_ptr(),
                         partial.data_ptr(), psi.data_ptr(), stream)
     if err != 0:
@@ -108,7 +150,7 @@ def _launch(x, c, old_mind, u, pp, ell, w, valid):
 
 
 def init_sweep(points, cands, old_mind, uniforms, psi_prev, *, ell: float,
-               cand_valid=None, weights=None):
+               cand_valid=None, weights=None, spec=None):
     """One k-means|| round: ``points (n,d)``, the round's new candidates
     ``cands (c,d)``, the running minimum ``old_mind (n,)`` (``+inf`` before
     the first round), the round's uniforms ``(n,)`` and the previous
@@ -117,17 +159,19 @@ def init_sweep(points, cands, old_mind, uniforms, psi_prev, *, ell: float,
 
     ``ell`` is the oversampling factor (used as float32), ``cand_valid (c,)``
     bool masks candidates out (``None``: all valid), ``weights (n,)`` weight
-    the potential and gate the draw (``None``: all ones).
+    the potential and gate the draw (``None``: all ones).  ``spec``: the
+    kernel's ``KernelSpec`` (``DEFAULT_SPEC`` when ``None``).
     """
+    spec = specs.coerce(spec)
     _check(points, cands, old_mind, uniforms, weights, cand_valid)
     dev = points.device
     pp = torch.as_tensor(psi_prev, dtype=torch.float32, device=dev).reshape(())
     if dev.type == "cpu":
-        return ref.init_sweep_ref(points, cands, old_mind, uniforms, pp,
-                                  ell=ell, cand_valid=cand_valid,
-                                  weights=weights)
+        return init_sweep_plain(points, cands, old_mind, uniforms, pp,
+                                ell=ell, cand_valid=cand_valid,
+                                weights=weights, spec=spec)
     if dev.type != "cuda":
         raise ValueError(f"the init sweep runs on cuda or cpu, not "
                          f"{dev.type}")
     return _launch(points, cands, old_mind, uniforms, pp, float(ell),
-                   weights, cand_valid)
+                   weights, cand_valid, spec)

@@ -10,6 +10,12 @@ with shared ``(k,d)`` seeds (``lloyd_solve_batched``,
 ``twopass`` engine's two kernels) take one subset or a stack with ``lanes``;
 ``init_sweep`` runs one k-means|| round (``kernels/init.py``).  All run the
 CUDA kernel on CUDA tensors and its plain version on CPU tensors.
+
+Points and centroids may be float32 or bfloat16.  The single-pass wrappers
+take ``spec=``, a :class:`~repro_torch.kernels.specs.KernelSpec`: ``None``
+is the module default (``specs.UPDATE_DEFAULT_SPEC`` for the update,
+``specs.DEFAULT_SPEC`` for the rest), and ``acc_dtype="bfloat16"`` runs the
+reference's bf16 arithmetic, on the card in the CUDA kernel.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ __all__ = ["assign", "centroid_update", "init_sweep", "lloyd_step_fused",
 
 
 def lloyd_step_fused(points, centroids, weights=None, *, lanes=None,
-                     return_labels=False):
+                     return_labels=False, spec=None):
     """One fused Lloyd pass -> (sums (k,d), counts (k,), sse ()) for one
     subset, or ``(L,k,d), (L,k), (L,)`` for a stack.  With
     ``return_labels=True`` the same pass also returns its labels and
@@ -38,20 +44,21 @@ def lloyd_step_fused(points, centroids, weights=None, *, lanes=None,
         out = fused.fused_lloyd(
             points.unsqueeze(0), centroids.unsqueeze(0),
             None if weights is None else weights.unsqueeze(0),
-            return_labels=return_labels)
+            return_labels=return_labels, spec=spec)
         return tuple(t[0] for t in out)
     return tuple(fused.fused_lloyd(points, centroids, weights, lanes,
-                                   return_labels=return_labels))
+                                   return_labels=return_labels, spec=spec))
 
 
-def lloyd_assign_fused(points, centroids, *, lanes=None):
+def lloyd_assign_fused(points, centroids, *, lanes=None, spec=None):
     """Labels + min squared distances from the fused pass's assign-only
     mode -> (labels (n,) i32, mind (n,)) or ``(L,S)`` each for a stack."""
     if points.dim() == 2:
         out = fused.fused_lloyd(points.unsqueeze(0), centroids.unsqueeze(0),
-                                assign_only=True)
+                                assign_only=True, spec=spec)
         return out.labels[0], out.mind[0]
-    out = fused.fused_lloyd(points, centroids, lanes=lanes, assign_only=True)
+    out = fused.fused_lloyd(points, centroids, lanes=lanes, assign_only=True,
+                            spec=spec)
     return out.labels, out.mind
 
 

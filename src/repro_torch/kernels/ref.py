@@ -70,6 +70,62 @@ def by_row_chunks(fn, points: torch.Tensor, k: int, *args) -> tuple:
     return tuple(torch.cat(t, dim=-1) for t in zip(*parts))
 
 
+# ---- bfloat16 (KernelSpec.acc_dtype="bfloat16") ----
+# The reference's bf16 kernels round their operands, each dot product over
+# the whole of d, and each score ``cn - 2 x.c`` to bfloat16, and round each
+# cluster's weighted partial sum over a block of ``bn`` rows.  The plain
+# versions below compute each product in float32 on bfloat16-valued
+# operands and round it once: never a bfloat16 ``matmul``, whose reduction
+# cuBLAS and oneDNN may round differently.
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest bfloat16, as float32 values."""
+    return t.to(torch.bfloat16).float()
+
+
+def bf16_scores(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 score of ``x (..., n, d)`` against ``c (..., k, d)``
+    (either dtype) -> ``(..., n, k)`` float32: the norms of ``c`` as given,
+    summed in float32 and rounded; the product of the rounded operands in
+    float32, each dot rounded; ``cn - 2 dot`` rounded."""
+    cn = round_bf16(torch.sum(c.float() * c.float(), dim=-1))
+    dot = round_bf16(round_bf16(x) @ round_bf16(c).transpose(-1, -2))
+    return round_bf16(cn.unsqueeze(-2) - 2.0 * dot)
+
+
+def bf16_block_sums(x: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+                    k: int, bn: int):
+    """The bfloat16 accumulate: ``x (L,S,d)``, ``labels (L,S)``, ``w (L,S)``
+    -> ``(sums (L,k,d), counts (L,k))`` float32.  Points and weights are
+    rounded to bfloat16; each cluster's weighted sum over a block of ``bn``
+    rows (rows ``[b bn, (b + 1) bn)``) is taken in float32 and rounded to
+    bfloat16, and the partials are added in float32 in block order; the
+    counts are the blocks' float32 sums added in block order.  A label
+    outside ``[0, k)`` contributes nothing."""
+    n_l, s, d = x.shape
+    xs, ws = round_bf16(x), round_bf16(w)
+    sums = torch.zeros((n_l, k, d), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((n_l, k), dtype=torch.float32, device=x.device)
+    col = torch.arange(k, device=x.device)
+    nb = -(-s // bn)
+    step = max(1, PLAIN_SCORE_ELEMS // max(1, n_l * bn * k))
+    for b0 in range(0, nb, step):
+        lo, hi = b0 * bn, min(s, (b0 + step) * bn)
+        g = -(-(hi - lo) // bn)
+        pad = g * bn - (hi - lo)
+        oh = (labels[:, lo:hi].long().unsqueeze(-1) == col).float()
+        oh = oh * ws[:, lo:hi].unsqueeze(-1)
+        oh = torch.nn.functional.pad(oh, (0, 0, 0, pad)).view(n_l, g, bn, k)
+        xb = torch.nn.functional.pad(xs[:, lo:hi], (0, 0, 0, pad))
+        part = round_bf16(oh.transpose(-1, -2) @ xb.view(n_l, g, bn, d))
+        cnt = torch.sum(oh, dim=2)
+        for j in range(g):
+            sums = sums + part[:, j]
+            counts = counts + cnt[:, j]
+    return sums, counts
+
+
 def assign_ref(points: torch.Tensor, centroids: torch.Tensor):
     """Nearest-centroid assignment: (n,d),(k,d) -> labels (n,) i32, min sq
     distances (n,) f32.  Ties break to the lowest index (``torch.argmin``

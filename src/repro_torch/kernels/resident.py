@@ -51,14 +51,16 @@ def check_prune(prune: str) -> str:
 
 
 def resident_feasible(n: int, d: int, k: int, prune: str = "none",
-                      bound_block: int | None = None) -> bool:
+                      bound_block: int | None = None, device=None) -> bool:
     """Does a solve of ``n`` points against ``k`` centroids fit the
-    kernel's shared-memory budget?  (Not a TPU VMEM model: the points and
-    the (k, d) accumulators live in device memory here; what must fit a
-    block is the score tiles and the per-cluster sort state.)"""
+    kernel's shared-memory budget on ``device`` (``specs.get_profile``)?
+    (Not a TPU VMEM model: the points and the (k, d) accumulators live in
+    device memory here; what must fit a block is the score tiles and the
+    per-cluster sort state.)"""
     from repro_torch.kernels import batch_resident
     return batch_resident.batched_feasible(n, d, k, prune=prune,
-                                           bound_block=bound_block)
+                                           bound_block=bound_block,
+                                           device=device)
 
 
 def lloyd_solve_resident(points, centroids, weights=None, *,
@@ -67,8 +69,9 @@ def lloyd_solve_resident(points, centroids, weights=None, *,
                          bound_block: int | None = None,
                          return_skips: bool = False):
     """Full Lloyd solve in one launch: ``points (n,d)``, ``centroids
-    (k,d)``, ``weights (n,)`` or ``None`` -> (centroids (k,d) f32, sse (),
-    iters () i32, converged () bool[, skips (max_iters,2) i32]).
+    (k,d)``, ``weights (n,)`` or ``None`` -> (centroids (k,d) in the seeds'
+    dtype, sse () f32, iters () i32, converged () bool[, skips
+    (max_iters,2) i32]).
 
     Semantics of the reference's resident solve: iterate while ``iters <
     max_iters and shift > tol`` with keep-old handling of empty clusters

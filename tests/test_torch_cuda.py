@@ -4,7 +4,9 @@ plain versions; the whole-solve kernel's bitwise contracts (bounds == exact,
 one batched launch == one resident launch per lane, every cluster size ==
 one block a lane, forced with ``solve_stack(..., cluster=R)``); the two-pass
 step's sums bit for bit the fused pass's, on a stack and on one large lane;
-repeat launches bit-identical.  Marked
+repeat launches bit-identical; the bf16 kernels (``KernelSpec(acc_dtype=
+"bfloat16")``) against their plain versions and the bf16 carry, batched ==
+resident == the fused engine's loop bit for bit.  Marked
 ``cuda``; skips without a card.
 Run on a machine with one (no JAX needed, so without the JAX conftest):
 
@@ -17,7 +19,7 @@ import torch
 from repro_torch.core.ipkmeans import IPKMeansConfig, ipkmeans
 from repro_torch.core.kmeans import KMeansParams, kmeans_batched
 from repro_torch.kernels import (assign, batch_resident, centroid_update,
-                                 engine, fused, init, resident)
+                                 engine, fused, init, ref, resident, specs)
 
 pytestmark = pytest.mark.cuda
 
@@ -561,3 +563,271 @@ def test_hierarchical_merge_on_card_matches_cpu(card):
     want = merge.hierarchical_merge(c, 8)
     got = merge.hierarchical_merge(c.to(card), 8)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0.0)
+
+
+
+# ---- bfloat16: the bf16-accumulate kernels and the bf16 carry ----
+# The kernels and their plain versions take the same rounding points but
+# sum each dot product and each block's partial sums in float32 in their own
+# order, then round to bfloat16, so now and then a rounding lands one
+# bfloat16 step apart.  Labels may then differ where the plain version's two
+# scores lie within one bfloat16 ulp of the score's largest term (max(|cn|,
+# |2 x.c|): one rounding of x.c moves the score by at most that), distances
+# by two such ulps plus float32 noise of ||x||^2, and a sum by 2**-7 of its
+# rows' absolute weighted sum (two roundings of each block partial, at most
+# one bfloat16 step apart).  Float32 arithmetic stays inside those bounds
+# too, so the steps are also counted: at most DEPART_SHARE of the rows or
+# sum entries, plus DEPART_FLOOR, may depart from the plain version beyond
+# float32 noise (1e-5 of ||x||^2 for a distance, of the rows' absolute
+# weighted sum for a sum).  The float32 kernels and accumulates over blocks
+# of half the rows must fail the same check.
+
+BF16 = specs.KernelSpec(acc_dtype="bfloat16")
+DEPART_SHARE, DEPART_FLOOR = 2.0**-10, 2
+
+
+def _departures_ok(n_dep, n):
+    return n_dep <= DEPART_SHARE * n + DEPART_FLOOR
+
+
+def _bf16_ulp(v):
+    mag = torch.clamp(v.abs(), min=torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _bf16_score(xr, cc):
+    """The plain bf16 score of rows ``xr (R,d)`` against ``cc (R,d)`` and
+    one bf16 ulp of its largest term -> two (R,) tensors."""
+    cn = ref.round_bf16(torch.sum(cc.float() * cc.float(), dim=-1))
+    dot = ref.round_bf16(torch.sum(ref.round_bf16(xr) * ref.round_bf16(cc),
+                                   dim=-1))
+    term = torch.maximum(cn.abs(), 2.0 * dot.abs())
+    return ref.round_bf16(cn - 2.0 * dot), _bf16_ulp(term)
+
+
+def _bf16_assign_ok(x, c, got, want, x2_rows=None) -> bool:
+    """``got``/``want`` AssignOuts of ``x (L,S,d)`` against ``c (L,k,d)``:
+    labels equal but at near-ties, distances within two ulps of the
+    score's largest term (plus 1e-5 of ||x||^2), and few rows departing."""
+    diff = got.labels != want.labels
+    lane, row = torch.nonzero(diff, as_tuple=True)
+    if row.numel():
+        xr = x[lane, row]
+        sk, uk = _bf16_score(xr, c[lane, got.labels[lane, row].long()])
+        sp, up = _bf16_score(xr, c[lane, want.labels[lane, row].long()])
+        if not bool(torch.all((sk - sp).abs() <= torch.maximum(uk, up))):
+            return False
+    xn = ref.round_bf16(x) if x2_rows is None else x2_rows.float()
+    noise = 1e-5 * torch.sum(xn * xn, dim=-1) + 1e-6
+    picked = torch.gather(c, 1, want.labels.long().unsqueeze(-1).expand(
+        *want.labels.shape, c.shape[-1]))
+    _, ulp = _bf16_score(x.reshape(-1, x.shape[-1]),
+                         picked.reshape(-1, c.shape[-1]))
+    err = (got.mind - want.mind).abs()
+    n_dep = int((diff | (err > noise)).sum())
+    return (bool(torch.all(err <= 2.0 * ulp.view(want.mind.shape) + noise))
+            and _departures_ok(n_dep, diff.numel()))
+
+
+def _bf16_sums_ok(x, labels, w, k, got, want) -> bool:
+    """Sums within 2**-7 of the rows' absolute weighted sum and few entries
+    departing beyond 1e-5 of it, counts equal (0/1 weights)."""
+    lanes = torch.arange(labels.shape[0], dtype=torch.int32,
+                         device=x.device)
+    mag, _ = centroid_update.centroid_update_plain(x.float().abs(), labels,
+                                                   w.abs(), k, lanes)
+    err = (got[0] - want[0]).abs()
+    n_dep = int((err > 1e-5 * mag + 1e-6).sum())
+    return (bool(torch.all(err <= 2**-7 * mag * 1.001 + 1e-6))
+            and _departures_ok(n_dep, err.numel())
+            and torch.equal(got[1], want[1]))
+
+
+def test_bf16_kernels_match_plain_versions(card):
+    x, c, w = _ragged(card, seed=9)
+    k = c.shape[1]
+    lanes = torch.arange(3, dtype=torch.int32, device=card)
+    before = (fused.launches, assign.launches, centroid_update.launches)
+    out = fused.fused_lloyd(x, c, w, spec=BF16, return_labels=True)
+    asg = assign.assign(x, c, spec=BF16)
+    upd = centroid_update.centroid_update(x, out.labels, w, k, spec=BF16)
+    assert (fused.launches, assign.launches, centroid_update.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    plain = fused.fused_lloyd_plain(x, c, w, spec=BF16, return_labels=True)
+    plain_asg = fused.AssignOut(plain.labels, plain.mind)
+    assert _bf16_assign_ok(x, c, fused.AssignOut(out.labels, out.mind),
+                           plain_asg)
+    asg_plain = assign.assign_plain(x, c, lanes, BF16)
+    assert _bf16_assign_ok(x, c, asg, asg_plain, x2_rows=x)
+    # the fused step's accumulate is the update's, on its own labels
+    assert torch.equal(out.sums, upd[0]) and torch.equal(out.counts, upd[1])
+    sums_plain = centroid_update.centroid_update_plain(x, out.labels, w, k,
+                                                       lanes, BF16)
+    assert _bf16_sums_ok(x, out.labels, w, k, upd, sums_plain)
+    torch.testing.assert_close(out.sse, torch.sum(
+        ref.round_bf16(w) * out.mind, dim=1), rtol=1e-5, atol=0.0)
+    # controls: the f32 kernels, and blocks of half the rows, fail the checks
+    out32 = fused.fused_lloyd(x, c, w, return_labels=True)
+    assert not _bf16_assign_ok(x, c, fused.AssignOut(out32.labels,
+                                                     out32.mind), plain_asg)
+    assert not _bf16_assign_ok(x, c, assign.assign(x, c), asg_plain,
+                               x2_rows=x)
+    assert not _bf16_sums_ok(x, out.labels, w, k, centroid_update
+                             .centroid_update(x, out.labels, w, k),
+                             sums_plain)
+    half = BF16.replace(block_n=BF16.block_n // 2)
+    assert not _bf16_sums_ok(x, out.labels, w, k, centroid_update
+                             .centroid_update(x, out.labels, w, k, spec=half),
+                             sums_plain)
+    assert not _bf16_sums_ok(x, out.labels, w, k, fused.fused_lloyd(
+        x, c, w, spec=half)[:2], sums_plain)
+
+
+def test_bf16_inputs_are_their_widened_values_and_repeat_bit_identical(card):
+    x, c, w = _ragged(card, seed=10)
+    xb, cb, wb = (t.to(torch.bfloat16) for t in (x, c, w))
+    k = c.shape[1]
+    for spec in (None, BF16):
+        a = fused.fused_lloyd(xb, cb, wb, spec=spec, return_labels=True)
+        assert _same(a, fused.fused_lloyd(xb.float(), cb.float(), wb.float(),
+                                          spec=spec, return_labels=True))
+        assert _same(a, fused.fused_lloyd(xb, cb, wb, spec=spec,
+                                          return_labels=True))
+        u = centroid_update.centroid_update(xb, a.labels, wb, k, spec=spec)
+        assert _same(u, centroid_update.centroid_update(
+            xb.float(), a.labels, wb.float(), k, spec=spec))
+        asg = assign.assign(xb, cb, spec=spec)
+        assert _same(asg, assign.assign(xb.float(), cb.float(), spec=spec))
+        assert _same(asg, assign.assign(xb, cb, spec=spec))
+
+
+@pytest.mark.parametrize("case", ["draw", "padding"])
+def test_bf16_init_sweep_matches_plain_version(card, case):
+    g = torch.Generator().manual_seed(12)
+    n, d, nc = 1000, 17, 37
+    x = (torch.randn((n, d), generator=g) * 3.0).to(card)
+    cands = (torch.randn((nc, d), generator=g) * 3.0).to(card)
+    old = (torch.rand(n, generator=g) * 300 + 100).to(card)
+    u = torch.rand(n, generator=g).to(card)
+    w = (torch.rand(n, generator=g) > 0.3).float().to(card)
+    pp, ell = torch.sum(w * old), 40.0
+    nv = 30 if case == "padding" else nc
+    valid = torch.arange(nc, device=card) < nv
+    before = init.launches
+    got = init.init_sweep(x, cands, old, u, pp, ell=ell, weights=w,
+                          cand_valid=valid, spec=BF16)
+    assert init.launches == before + 1
+    want = init.init_sweep_plain(x, cands, old, u, pp, ell=ell, weights=w,
+                                 cand_valid=valid, spec=BF16)
+    # the plain version's best candidate sets the rounding scale
+    best = torch.argmin(ref.bf16_scores(x, cands[:nv]), dim=1)
+    _, ulp = _bf16_score(x, cands[best])
+    noise = 1e-5 * torch.sum(ref.round_bf16(x) ** 2, dim=-1) + 1e-6
+    tol = 2.0 * ulp + noise
+
+    def agrees(out):
+        err = (out[0] - want[0]).abs()
+        return (bool(torch.all(err <= tol))
+                and _departures_ok(int((err > noise).sum()), n))
+
+    assert agrees(got)
+    # a draw may differ only where u * psi_prev is that close to ell * mind
+    differ = got[1] != want[1]
+    assert bool(torch.all((u * pp - ell * want[0]).abs()[differ]
+                          <= ell * tol[differ]))
+    torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=0.0)
+    assert _same(got, init.init_sweep(x, cands, old, u, pp, ell=ell,
+                                      weights=w, cand_valid=valid,
+                                      spec=BF16))
+    # control: the f32 kernel fails the same check
+    assert not agrees(init.init_sweep(x, cands, old, u, pp, ell=ell,
+                                      weights=w, cand_valid=valid))
+
+
+def test_bf16_carry_batched_is_resident_and_fused_bit_for_bit(card):
+    x, c, w = _solve_stack(card)
+    xb, cb = x.to(torch.bfloat16), c.to(torch.bfloat16)
+    stack = batch_resident.lloyd_solve_batched(xb, cb, w, **KW)
+    assert stack[0].dtype == torch.bfloat16
+    for i in (0, 3):
+        one = resident.lloyd_solve_resident(xb[i], cb, w[i], **KW)
+        assert all(torch.equal(a[i], b) for a, b in zip(stack, one))
+    # the fused engine's host loop rounds the same carry: the same bits
+    c_f, it_f, _ = engine.get_engine("fused").lloyd_loop(
+        xb, cb, w, max_iters=KW["max_iters"], tol=KW["tol"],
+        reseed_empty=True)
+    assert torch.equal(it_f, stack[2])
+    assert torch.equal(c_f.to(torch.bfloat16), stack[0])
+    # one trip against the plain version from the same seeds: the division
+    # of sums in another f32 order rounds within one bf16 ulp (further
+    # trips could part at a near-tie, so only one is held)
+    one = dict(KW, max_iters=1)
+    got = batch_resident.lloyd_solve_batched(xb, cb, w, **one)
+    want = batch_resident.lloyd_solve_plain(xb.cpu(), cb.cpu(), w.cpu(),
+                                            **one)
+    assert torch.equal(got[2].cpu(), want.iters)
+    diff = (got[0].float().cpu() - want.centroids.float()).abs()
+    assert bool(torch.all(diff <= _bf16_ulp(want.centroids.float())))
+
+
+def _hashed(shape, salt: int) -> torch.Tensor:
+    """Floats in [-3, 3) from a splitmix64 hash of each element's index and
+    ``salt``: inputs that no random generator's version can move."""
+    z = (np.arange(int(np.prod(shape)), dtype=np.uint64)
+         + np.uint64(salt << 32)) * np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    u = (z >> np.uint64(40)).astype(np.float64) / float(1 << 24)
+    return torch.from_numpy(((u - 0.5) * 6.0).astype(np.float32)
+                            .reshape(shape))
+
+
+def _f32_outputs(dev):
+    """Every f32 kernel once, on fixed hashed inputs shaped as ``_ragged``
+    and ``_solve_stack``'s, through calls that exist unchanged since before
+    the bf16 modes."""
+    x, c = _hashed((3, 1000, 17), 1), _hashed((3, 130, 17), 2)
+    c[:, 7] = c[:, 3]
+    c[:, 11] = 1e3
+    w = (_hashed((3, 1000), 3) > -1.2).float()
+    old = (_hashed((1000,), 4) + 3.0) * 50.0 + 100.0
+    u = (_hashed((1000,), 5) + 3.0) / 6.0
+    m, s, d, k = 5, 1000, 17, 130
+    centers = _hashed((k, d), 6) * 2.0
+    pick = ((_hashed((m, s), 7) + 3.0) * (k / 6.0)).long().clamp(0, k - 1)
+    xs = centers[pick] + _hashed((m, s, d), 8) / 3.0
+    cs = xs[0, :k].clone()
+    cs[7] = cs[3]
+    cs[129] = cs[50]
+    ws = (_hashed((m, s), 9) > -1.2).float()
+    ws[2] = 0.0
+    x, c, w, old, u, xs, cs, ws = (t.to(dev) for t in (x, c, w, old, u, xs,
+                                                       cs, ws))
+    step = fused.fused_lloyd(x, c, w)
+    return [*step, *assign.assign(x, c),
+            *centroid_update.centroid_update(x, step.counts.argmax(-1)[:, None]
+                                             .expand(-1, x.shape[1])
+                                             .contiguous().int(), w,
+                                             c.shape[1]),
+            *init.init_sweep(x[0], c[0], old, u, 5000.0, ell=40.0),
+            *batch_resident.lloyd_solve_batched(xs, cs, ws, **KW)]
+
+
+def _digest(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+# the digest of _f32_outputs from the kernels as they were before the bf16
+# modes (the f32 instantiations) were added, on an NVIDIA H100 80GB HBM3
+# (torch 2.11.0+cu128): the f32 kernels must keep their bits
+F32_DIGEST = "4019e53292e18596"
+
+
+def test_f32_kernels_give_their_earlier_bits(card):
+    assert _digest(_f32_outputs(card)) == F32_DIGEST

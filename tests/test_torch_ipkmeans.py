@@ -164,7 +164,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels.engine, repro_torch.kernels.ops, "
             "repro_torch.kernels.assign, repro_torch.kernels.centroid_update, "
             "repro_torch.kernels.init, repro_torch.core.pkmeans, "
-            "repro_torch.core.merge, repro_torch.core.kdtree\n"
+            "repro_torch.core.merge, repro_torch.core.kdtree, "
+            "repro_torch.kernels.specs, repro_torch.core.io_model\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
