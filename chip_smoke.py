@@ -31,6 +31,23 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      and one score pass with max_iters=0 of the stack and of a lone lane),
      the whole solves of the stack's first 16 and 48 lanes at each R beside
      the rule's pick, and an 8-lane slice against its plain version;
+  5a. [serve]: the serving tier (``NearestCentroidServer``,
+     ``BucketPolicy()``: buckets of 8 to 4096 rows) over [main]'s batched
+     centroids, counts the main input's cluster sizes: a stream of 2048
+     requests of 1..4096 rows and 4 of 2**16 (chunked), one dispatch each,
+     a refresh on ``fused`` (2**16 rows of the main mixture, drifting by
+     0.25 a refresh) every 256 dispatches, the counts set to 0 just before
+     and read just after (one fused launch a chunk and a refresh) and no
+     plain version called; the served rows bit for bit the unpadded launch
+     (each epoch, each bucket), coalesced dispatch bit for bit direct
+     assigns in the reference's FIFO steps, one build a bucket, the plain
+     version's labels (near-tie rule), each refresh against ``twopass``
+     (centroids and counts bit for bit) and the plain oracle, the refreshed
+     centroids beating the stale ones on a drifted batch, ``tuned`` against
+     ``resident`` on 4 lanes with an empty tuning cache, and a cached bf16
+     spec reaching bucket 4096 (the bf16 checks pass, the f32 control
+     fails them); latency p50/p99 by bucket, rows/s, refresh times beside
+     their bound;
   6. [resident]: one full-width solve through ``kmeans(...,
      backend="resident")``, its R, beside the fused engine's solve;
   7. [assign] (run before [main]): the assign kernel against its plain
@@ -229,6 +246,21 @@ BF16_DEPART_SHARE = 2.0 ** -10
 BF16_DEPART_FLOOR = 2
 BF16_SSE_RTOL = 1e-3
 BF16_RESIDENT_LANES = 4
+# [serve]: the serving tier over [main]'s batched centroids.  The stream:
+# SERVE_REQUESTS requests of sizes uniform over 1..SERVE_MAX_REQUEST, and
+# SERVE_BIG requests of SERVE_BIG_ROWS rows (chunked by the server), each
+# one dispatch; every SERVE_REFRESH_EVERY dispatches a refresh on the fused
+# engine with SERVE_REFRESH_ROWS rows from the main mixture, its centres
+# shifted by SERVE_DRIFT more each time.  SERVE_COALESCE requests go through
+# submit/step against direct assigns.
+SERVE_REQUESTS = 2048
+SERVE_MAX_REQUEST = 4096
+SERVE_BIG = 4
+SERVE_BIG_ROWS = 1 << 16
+SERVE_REFRESH_EVERY = 256
+SERVE_REFRESH_ROWS = 1 << 16
+SERVE_DRIFT = 0.25
+SERVE_COALESCE = 64
 
 
 def fail(msg: str) -> int:
@@ -1058,6 +1090,363 @@ def phase_resident(torch, report: dict, main: dict) -> bool:
         res_f.iters) == int(res.iters)
 
 
+def serve_rows(torch, gen, centers, n: int, drift: float = 0.0):
+    """n rows of the main mixture (centres ``centers``), shifted by
+    ``drift``."""
+    comp = torch.randint(0, K, (n,), generator=gen, device=centers.device)
+    return centers[comp] + drift + torch.randn(
+        (n, D), generator=gen, device=centers.device)
+
+
+def fifo_steps(sizes, top: int) -> list[list[int]]:
+    """The reference's coalescing rule: each step takes queued requests
+    first in first out while they fit the top bucket together, the first
+    one always -> the ticket lists of the steps."""
+    steps, i = [], 0
+    while i < len(sizes):
+        take, rows = [i], sizes[i]
+        i += 1
+        while i < len(sizes) and rows + sizes[i] <= top:
+            take.append(i)
+            rows += sizes[i]
+            i += 1
+        steps.append(take)
+    return steps
+
+
+def use_cache(path: str):
+    """The tuning cache at ``path`` for the duration of a ``with``."""
+    import os
+    from repro_torch.kernels import tuning
+    patch = mock.patch.dict(os.environ, {tuning.ENV_CACHE_PATH: path})
+    patch.start()
+    tuning.reload_cache()
+    return patch
+
+
+def phase_serve(torch, report: dict, main: dict) -> bool:
+    """[serve]: ``NearestCentroidServer`` over [main]'s batched centroids
+    (K = 1024, d = 64, f32, counts the main input's cluster sizes),
+    ``BucketPolicy()``, an empty tuning cache.  A stream of SERVE_REQUESTS
+    requests and SERVE_BIG chunked ones, one dispatch each, with a refresh on
+    ``fused`` every SERVE_REFRESH_EVERY dispatches, the counts set to 0
+    just before and read just after and the plain versions watched; then the
+    checks: the served rows against the unpadded launch (each epoch between
+    refreshes, and each bucket), coalesced dispatch against direct assigns
+    and the FIFO rule, one build a bucket, the plain version (near-tie rule),
+    each refresh against ``twopass`` and the plain oracle, the drift,
+    ``tuned`` against ``resident`` on the main stack's first 4 lanes, and a
+    cached bf16 spec reaching bucket 4096."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core.kmeans import KMeansParams, update_minibatch
+    from repro_torch.core.serve import BucketPolicy, NearestCentroidServer
+    from repro_torch.kernels import engine, fused, ops, ref, specs, tuning
+    from repro_torch.kernels.fused import AssignOut
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    cents = main["res_b"].centroids.contiguous()
+    policy = BucketPolicy()
+    top = policy.top
+    tmp = tempfile.TemporaryDirectory()
+    cache = use_cache(f"{tmp.name}/empty.json")
+    try:
+        counts = torch.bincount(ops.lloyd_assign_fused(main["x"], cents)[0]
+                                .long(), minlength=K).float()
+        # the main mixture's centres are mixture()'s first draw
+        centers = (torch.rand((K, D), generator=torch.Generator(device=dev)
+                              .manual_seed(SEED), device=dev) * 12.0 - 6.0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        sizes = torch.randint(1, SERVE_MAX_REQUEST + 1, (SERVE_REQUESTS,),
+                              generator=gen, device=dev).tolist()
+        every = SERVE_REQUESTS // SERVE_BIG
+        stream = []
+        for b in range(SERVE_BIG):
+            stream += sizes[b * every:(b + 1) * every] + [SERVE_BIG_ROWS]
+        rows = serve_rows(torch, gen, centers, sum(stream))
+        n_ref = len(stream) // SERVE_REFRESH_EVERY
+        batches = [serve_rows(torch, gen, centers, SERVE_REFRESH_ROWS,
+                              SERVE_DRIFT * (r + 1)) for r in range(n_ref)]
+        drifted = serve_rows(torch, gen, centers, SERVE_REFRESH_ROWS,
+                             SERVE_DRIFT * n_ref)
+        torch.cuda.synchronize()
+        print(f"[serve] K={K} d={D} f32, [main]'s batched centroids, counts "
+              f"from the main input's {N} rows; {len(stream)} requests "
+              f"({SERVE_REQUESTS} of 1..{SERVE_MAX_REQUEST} rows, {SERVE_BIG}"
+              f" of {SERVE_BIG_ROWS}), {sum(stream)} rows; a refresh of "
+              f"{SERVE_REFRESH_ROWS} rows every {SERVE_REFRESH_EVERY} "
+              f"dispatches, drift {SERVE_DRIFT} a refresh; buckets "
+              f"{policy.buckets()}; {smi}", flush=True)
+
+        # the stream, counted, with every plain version watched
+        server = NearestCentroidServer(cents, counts, policy=policy,
+                                       refresh_backend="fused", device=dev)
+        plains = [(fused, "fused_lloyd_plain"), (fused, "plain_assign"),
+                  (ref, "assign_ref"), (ref, "centroid_update_ref"),
+                  (ref, "lloyd_step_ref"), (ref, "minibatch_update_ref")]
+        spies = [mock.patch.object(mod, name, wraps=getattr(mod, name))
+                 for mod, name in plains]
+        watched = [p.start() for p in spies]
+        lat, served, epochs, refreshes = [], [], [], []
+        done_ok, off = True, 0
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            for i, n in enumerate(stream):
+                q = rows[off:off + n]
+                off += n
+                t = server.submit(q)
+                ts = time.perf_counter()
+                done = server.step()
+                out = server.result(t)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - ts)
+                served.append(out)
+                done_ok = done_ok and done == [t]
+                if (i + 1) % SERVE_REFRESH_EVERY == 0:
+                    r = len(refreshes)
+                    c0, n0 = server.centroids, server.counts
+                    epochs.append((off, c0))
+                    ts = time.perf_counter()
+                    sse = server.refresh(batches[r])
+                    torch.cuda.synchronize()
+                    refreshes.append((c0, n0, server.centroids,
+                                      server.counts, sse,
+                                      (time.perf_counter() - ts) * 1e3))
+        finally:
+            calls = {name: spy.call_count
+                     for (_, name), spy in zip(plains, watched)}
+            for p in spies:
+                p.stop()
+        wall = time.perf_counter() - t0
+        stream_counts = read_counts()
+        epochs.append((off, server.centroids))
+        chunks = sum(-(-n // top) for n in stream)
+        want_counts = counts_of(fused_lloyd=chunks + len(refreshes))
+        ok = (done_ok and stream_counts == want_counts
+              and not any(calls.values()))
+        report.setdefault("launches_by_path", {}).update({
+            "serve dispatches (one a chunk)": chunks,
+            "serve refreshes": len(refreshes)})
+        print(f"[serve] stream: {len(stream)} dispatches in {wall:.3f} s "
+              f"with {len(refreshes)} refreshes, {sum(stream) / wall:.0f} "
+              f"rows/s ({sum(stream) / sum(lat):.0f} rows/s over the "
+              f"dispatches alone); launches {stream_counts} (want "
+              f"{want_counts}: one a chunk, one a refresh); plain-version "
+              f"calls {calls}; each step completed its own ticket "
+              f"{done_ok}; {smi}", flush=True)
+
+        # latency by bucket (the chunked requests apart)
+        by = {}
+        for n, t in zip(stream, lat):
+            key = policy.bucket_for(n) if n <= top else f"{n} rows chunked"
+            by.setdefault(key, []).append(t * 1e3)
+        lat_rep = {}
+        for key, ts in by.items():
+            p50, p99 = np.percentile(ts, 50), np.percentile(ts, 99)
+            lat_rep[str(key)] = dict(n=len(ts), p50_ms=p50, p99_ms=p99)
+            print(f"[serve] bucket {key}: {len(ts)} dispatches, latency p50 "
+                  f"{p50:.4f} ms p99 {p99:.4f} ms; {smi}", flush=True)
+        used = {policy.bucket_for(min(top, n - a)) for n in stream
+                for a in range(0, n, top)}
+        built = dict(server.trace_counts)
+        once = (built == dict.fromkeys(used, 1)
+                and len(built) <= len(policy.buckets()))
+        print(f"[serve] builds per bucket {dict(sorted(built.items()))}: one"
+              f" for each bucket used, at most {len(policy.buckets())}: "
+              f"{once}", flush=True)
+        ok = ok and once
+
+        # the served rows, epoch by epoch, against the unpadded launch and
+        # the plain version (the centroids of each epoch)
+        labels = torch.cat([o[0] for o in served])
+        mind = torch.cat([o[1] for o in served])
+        lo, same, n_tie = 0, True, 0
+        for e, (hi, c_e) in enumerate(epochs):
+            if hi == lo:
+                continue
+            q = rows[lo:hi]
+            whole = ops.lloyd_assign_fused(q, c_e)
+            same = (same and torch.equal(whole[0], labels[lo:hi])
+                    and torch.equal(whole[1], mind[lo:hi]))
+            pa = fused.fused_lloyd_plain(q[None], c_e[None], assign_only=True)
+            agree, diff, _ = label_agreement(
+                f"serve epoch {e}", q[None], c_e[None],
+                AssignOut(labels[None, lo:hi], mind[None, lo:hi]), pa, torch)
+            ok = ok and agree
+            n_tie += diff
+            lo = hi
+        # each bucket, at its smallest and largest request, on a fresh
+        # server: the bucketed result is the unpadded launch's bit for bit
+        fresh = NearestCentroidServer(cents, counts, policy=policy,
+                                      device=dev)
+        per_bucket = True
+        for b in policy.buckets():
+            for n in sorted({b // 2 + 1, b}):
+                got = fresh.assign(rows[:n])
+                want = ops.lloyd_assign_fused(rows[:n], cents)
+                per_bucket = (per_bucket and torch.equal(got[0], want[0])
+                              and torch.equal(got[1], want[1]))
+        print(f"[serve] served rows bit for bit the unpadded launch over "
+              f"each epoch: {same}; at each bucket (n = b/2 + 1 and b): "
+              f"{per_bucket}; labels differing from the plain version "
+              f"{n_tie}, all near-ties", flush=True)
+        ok = ok and same and per_bucket
+        # where a dispatch's time goes: its device time at each bucket's
+        # largest request (torch.profiler) beside the bucket's p50 latency
+        dev_rep = {}
+        for b in policy.buckets():
+            dev_rep[b] = pass_times(torch, lambda: fresh.assign(rows[:b]),
+                                    reps=5)
+            p50 = lat_rep.get(str(b), {}).get("p50_ms", float("nan"))
+            print(f"[serve] bucket {b}: device time a dispatch "
+                  f"{sum(dev_rep[b].values()):.4f} ms by kernel {dev_rep[b]}"
+                  f", p50 latency {p50:.4f} ms; {smi}", flush=True)
+
+        # coalesced submit/step against direct assigns and the FIFO rule
+        co = stream[:SERVE_COALESCE - 1] + [SERVE_BIG_ROWS]
+        starts = np.concatenate([[0], np.cumsum(co)[:-1]]).tolist()
+        tickets = [fresh.submit(rows[a:a + n]) for a, n in zip(starts, co)]
+        steps = []
+        while fresh.pending:
+            steps.append(fresh.step())
+        want_steps = [[tickets[j] for j in s] for s in fifo_steps(co, top)]
+        direct = True
+        for t, a, n in zip(tickets, starts, co):
+            got, want = fresh.result(t), fresh.assign(rows[a:a + n])
+            direct = (direct and torch.equal(got[0], want[0])
+                      and torch.equal(got[1], want[1]))
+        print(f"[serve] coalesced: {len(co)} requests in {len(steps)} "
+              f"steps, the reference's FIFO steps {steps == want_steps}, "
+              f"each ticket bit for bit its direct assign {direct}",
+              flush=True)
+        ok = ok and steps == want_steps and direct
+
+        # each refresh: fused against twopass, and against the plain oracle
+        fused_p, two_p = (KMeansParams(backend="fused"),
+                          KMeansParams(backend="twopass"))
+        ref_rep, ref_ok = [], True
+        for r, (c0, n0, c1, n1, sse, host_ms) in enumerate(refreshes):
+            batch = batches[r]
+            two = update_minibatch(batch, c0, n0, params=two_p, device=dev)
+            bits = torch.equal(two[0], c1) and torch.equal(two[1], n1)
+            sse_rel = abs(float(two[2]) - float(sse)) / float(sse)
+            step = fused.fused_lloyd(batch[None], c0[None], return_labels=True)
+            lab = step.labels[0]
+            ones = torch.ones(batch.shape[0], device=dev)
+            sums_p, bc_p = ref.centroid_update_ref(batch, lab, ones, K)
+            mag, _ = ref.centroid_update_ref(batch.abs(), lab, ones, K)
+            sums_err = float(torch.max((step.sums[0] - sums_p).abs()
+                                       / (mag + 1e-6)))
+            c_p, n_p = ref.minibatch_merge(c0, n0, sums_p, bc_p)
+            tol = (UPDATE_REL * (n0[:, None] * c0.abs() + mag)
+                   / torch.clamp(n1[:, None], min=1.0) + 1e-6)
+            c_ok = bool(torch.all((c1 - c_p).abs() <= tol))
+            plain = ref.minibatch_update_ref(batch, c0, n0)
+            pa = AssignOut(*ref.assign_ref(batch, c0))
+            agree, diff, _ = label_agreement(
+                f"serve refresh {r}", batch[None], c0[None],
+                AssignOut(lab[None], step.mind), AssignOut(
+                    pa.labels[None], pa.mind[None]), torch)
+            sse_plain = abs(float(plain[2]) - float(sse)) / float(plain[2])
+            good = (bits and sse_rel <= MAIN_SSE_RTOL
+                    and sums_err <= UPDATE_REL
+                    and torch.equal(n_p, n1) and c_ok and agree
+                    and sse_plain <= SUM_RTOL
+                    and (diff > 0 or torch.equal(plain[1], n1)))
+            ref_ok = ref_ok and good
+            dev_ms = cuda_time_ms(lambda: update_minibatch(
+                batch, c0, n0, params=fused_p, device=dev), reps=5)
+            bound, by_what = step_bound_ms(1, SERVE_REFRESH_ROWS, D, K)
+            ref_rep.append(dict(host_ms=host_ms, device_ms=dev_ms,
+                                bound_ms=bound, sse=float(sse)))
+            print(f"[serve] refresh {r}: {host_ms:.4f} ms host clock "
+                  f"(merge and SSE read included), {dev_ms:.4f} ms a "
+                  f"refresh by CUDA events, bound {bound:.4f} ms "
+                  f"({by_what}); twopass: centroids and counts bit for bit "
+                  f"{bits}, SSE rel {sse_rel:.3g} (rtol {MAIN_SSE_RTOL}); "
+                  f"plain: sums worst {sums_err:.3g} of their magnitude "
+                  f"(tol {UPDATE_REL}), merged centroids within tolerance "
+                  f"{c_ok}, counts equal {torch.equal(n_p, n1)}, SSE rel "
+                  f"{sse_plain:.3g}: passes {good}; {smi}", flush=True)
+        stale = float(torch.sum(ops.lloyd_assign_fused(drifted, cents)[1]))
+        fresh_sse = float(torch.sum(ops.lloyd_assign_fused(
+            drifted, server.centroids)[1]))
+        drift_ok = fresh_sse < stale
+        print(f"[serve] refresh SSE series {[r['sse'] for r in ref_rep]}; "
+              f"a batch drifted by {SERVE_DRIFT * n_ref}: SSE against the "
+              f"refreshed centroids {fresh_sse:.6e}, against the stale "
+              f"ones {stale:.6e}: refreshed lower {drift_ok}", flush=True)
+        ok = ok and ref_ok and drift_ok
+
+        # tuned with the empty cache: resident, on the main stack's first
+        # lanes
+        xs = main["subsets"][:BF16_RESIDENT_LANES].contiguous()
+        ws = main["masks"][:BF16_RESIDENT_LANES].contiguous()
+        kw = dict(max_iters=MAX_ITERS, tol=TOL, reseed_empty=True)
+        tuned = engine.get_engine("tuned").solve_batched(xs, main["init"],
+                                                         ws, **kw)
+        res = engine.get_engine("resident").solve_batched(xs, main["init"],
+                                                          ws, **kw)
+        tuned_ok = identical(tuned, res)
+        print(f"[serve] tuned with an empty cache on the main stack's first "
+              f"{BF16_RESIDENT_LANES} lanes: bit for bit resident "
+              f"{tuned_ok}", flush=True)
+        ok = ok and tuned_ok
+    finally:
+        cache.stop()
+
+    # a cached bf16 spec for bucket 4096 under the card's name
+    kind = torch.cuda.get_device_name(0)
+    bf16 = specs.KernelSpec(acc_dtype="bfloat16")
+    key = tuning.cache_key(kind, torch.float32, top, D, K)
+    store = tuning.TuningCache.load(f"{tmp.name}/bf16.json")
+    store.put(key, bf16)
+    cache = use_cache(str(store.save()))
+    try:
+        bserver = NearestCentroidServer(cents, counts, policy=policy,
+                                        device=dev)
+        q = rows[:3000]
+        got = bserver.assign(q)
+        small = bserver.assign(q[:2000])
+        plain = fused.fused_lloyd_plain(q[None], cents[None],
+                                        assign_only=True, spec=bf16)
+        ok_b = bf16_assign_check("serve bf16 bucket 4096", torch, q[None],
+                                 cents[None], (got[0][None], got[1][None]),
+                                 (plain.labels, plain.mind))[0]
+        f32 = fresh.assign(q)
+        control = bf16_assign_check("serve bf16 control: f32 bucket", torch,
+                                    q[None], cents[None],
+                                    (f32[0][None], f32[1][None]),
+                                    (plain.labels, plain.mind))[0]
+        f32_small = fresh.assign(q[:2000])
+        small_ok = (torch.equal(small[0], f32_small[0])
+                    and torch.equal(small[1], f32_small[1]))
+        print(f"[serve] cache entry {key!r} = {bf16}: bucket {top} passes "
+              f"the bf16 checks {ok_b}, the f32 control fails them "
+              f"{not control}; bucket 2048 (no "
+              f"entry) bit for bit f32 {small_ok}; builds "
+              f"{bserver.trace_counts}", flush=True)
+        ok = ok and ok_b and not control and small_ok
+    finally:
+        cache.stop()
+        tuning.reload_cache()
+        tmp.cleanup()
+    print(json.dumps({"serve": dict(
+        device=smi, dispatches=len(stream), rows=sum(stream),
+        wall_s=wall, rows_per_s=sum(stream) / wall, latency=lat_rep,
+        device_ms=dev_rep, refreshes=ref_rep, launches=stream_counts)}),
+        flush=True)
+    print(f"[serve] the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not ok:
+        print("[serve] FAIL", flush=True)
+    return ok
+
+
 def library_scores(x, c, rows: int = 1 << 14):
     """Yardstick for the assign and init-sweep kernels from PyTorch library
     calls: matmul scores and the row min/argmin, over row chunks.  Timed
@@ -1464,7 +1853,7 @@ def phase_seed(torch, init_rep: dict, assign_rep: dict, main: dict) -> bool:
             return out
 
         t = time.perf_counter()
-        with mock.patch.object(seeding, "_sweep", lambda _: sweep):
+        with mock.patch.object(seeding, "_sweep", lambda *_: sweep):
             out = seeding.oversample(x, draws, ell=ell, weights=w,
                                      backend=backend)
         torch.cuda.synchronize()
@@ -2418,6 +2807,8 @@ def main() -> int:
     main_run = phase_main(torch, report, batched)
     if main_run is None:
         return fail("main path")
+    if not phase_serve(torch, report, main_run):
+        return fail("serving tier")
     if not phase_resident(torch, res_rep, main_run):
         return fail("resident solve")
     if not phase_update(torch, update_rep, main_run, big):

@@ -28,6 +28,7 @@ global random state.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -150,24 +151,26 @@ def kmeans_plus_plus(points: torch.Tensor, k: int, *, weights=None,
     return points[rows]
 
 
-def _sweep(backend: str):
+def _sweep(backend: str, spec=None):
     if backend == "kernel":
         from repro_torch.kernels.init import init_sweep
-        return init_sweep
+        return functools.partial(init_sweep, spec=spec)
     return ref.init_sweep_ref
 
 
 def oversample(points: torch.Tensor, draws: KMeansParallelDraws, *,
-               ell: float, weights: torch.Tensor, backend: str = "kernel"):
+               ell: float, weights: torch.Tensor, backend: str = "kernel",
+               spec=None):
     """The k-means|| rounds: the weighted-uniform first pick, then sweeps
     0..rounds (sweep r folds round r-1's draws and draws round r's; round 0
     has ``psi_prev = 0`` and draws nothing).  -> ``(pool (c,) int64, mind
     (n,), psi trace [float])``: the pool is the sorted distinct
     candidates, topped up with the farthest points (stable order) when it
-    holds fewer than ``len(draws.recluster)``."""
+    holds fewer than ``len(draws.recluster)``.  ``spec`` is the init-sweep
+    kernel's (``backend="kernel"`` only)."""
     n = points.shape[0]
     k = draws.recluster.shape[0]
-    sweep = _sweep(backend)
+    sweep = _sweep(backend, spec)
     # the first pick's probabilities are normalised in float64, then used in
     # float32, as the reference does on the host
     probs = weights.double()
@@ -198,13 +201,14 @@ def oversample(points: torch.Tensor, draws: KMeansParallelDraws, *,
 
 
 def candidate_weights(points: torch.Tensor, cands: torch.Tensor,
-                      weights: torch.Tensor, backend: str = "kernel"):
+                      weights: torch.Tensor, backend: str = "kernel",
+                      spec=None):
     """The point mass each candidate captures: one assign pass (the assign
-    kernel, or ``ref.assign_ref``), then ``index_add_`` of the weights by
-    label, as the reference leaves that scatter to XLA."""
+    kernel with ``spec``, or ``ref.assign_ref``), then ``index_add_`` of the
+    weights by label, as the reference leaves that scatter to XLA."""
     if backend == "kernel":
         from repro_torch.kernels.assign import assign
-        labels = assign(points, cands).labels
+        labels = assign(points, cands, spec=spec).labels
     else:
         labels = ref.assign_ref(points, cands)[0]
     out = torch.zeros((cands.shape[0],), dtype=torch.float32,
@@ -215,6 +219,7 @@ def candidate_weights(points: torch.Tensor, cands: torch.Tensor,
 def kmeans_parallel_init(points: torch.Tensor, k: int, *,
                          ell: float | None = None, rounds: int | None = None,
                          weights=None, backend: str = "kernel",
+                         spec=None,
                          draws: KMeansParallelDraws | None = None,
                          generator: torch.Generator | None = None,
                          return_stats: bool = False):
@@ -227,7 +232,10 @@ def kmeans_parallel_init(points: torch.Tensor, k: int, *,
     variant of the reference.  ``backend="kernel"`` runs the init-sweep and
     assign kernels on a CUDA tensor (their plain versions on a CPU one),
     ``"plain"`` the plain oracles ``ref.init_sweep_ref`` and
-    ``ref.assign_ref``.
+    ``ref.assign_ref``.  ``spec`` is the kernels' ``KernelSpec``; left
+    ``None`` on the kernels, it is the tuning cache's entry for the sweep's
+    steady candidate tile (``tuning.lookup_init_spec``), else the module
+    default.
     """
     n = points.shape[0]
     if n < 1:
@@ -240,6 +248,11 @@ def kmeans_parallel_init(points: torch.Tensor, k: int, *,
     rounds = max(1, int(default_rounds(n, k) if rounds is None else rounds))
     w = (torch.ones((n,), dtype=torch.float32, device=dev) if weights is None
          else torch.as_tensor(weights, dtype=torch.float32, device=dev))
+    if spec is None and backend == "kernel":
+        from repro_torch.kernels import tuning
+        cap0 = max(8, 1 << max(0, int(math.ceil(ell)) - 1).bit_length())
+        spec = tuning.lookup_init_spec(n, points.shape[1], cap0,
+                                       points.dtype, device=dev)
     if draws is None:
         draws = parallel_draws(n, k, rounds, generator, dev)
     else:
@@ -248,9 +261,9 @@ def kmeans_parallel_init(points: torch.Tensor, k: int, *,
             _as_draw(draws.rounds, (rounds + 1, n), dev),
             _as_draw(draws.recluster, (k,), dev))
     pool, _, trace = oversample(points, draws, ell=ell, weights=w,
-                                   backend=backend)
+                                backend=backend, spec=spec)
     cands = points[pool]
-    cweights = candidate_weights(points, cands, w, backend)
+    cweights = candidate_weights(points, cands, w, backend, spec)
     centroids = kmeans_plus_plus(cands, k, weights=cweights,
                                  uniforms=draws.recluster)
     if return_stats:
@@ -260,7 +273,7 @@ def kmeans_parallel_init(points: torch.Tensor, k: int, *,
 
 
 def resolve_init(points: torch.Tensor, k: int, method: str, *, weights=None,
-                 backend: str = "kernel", draws=None,
+                 backend: str = "kernel", spec=None, draws=None,
                  generator: torch.Generator | None = None) -> torch.Tensor:
     """An init strategy name -> ``(k, d)`` centroids.
 
@@ -268,7 +281,8 @@ def resolve_init(points: torch.Tensor, k: int, method: str, *, weights=None,
     ``(k,)`` for ``"kmeans++"``, a :class:`KMeansParallelDraws` for
     ``"kmeans||"``; without them the method draws from ``generator``.
     ``backend`` selects the k-means|| implementation (``"kernel"`` |
-    ``"plain"``); ``weights`` weight ``"kmeans++"`` and ``"kmeans||"``.
+    ``"plain"``) and ``spec`` its kernels' ``KernelSpec``; ``weights``
+    weight ``"kmeans++"`` and ``"kmeans||"``.
     """
     if method not in INIT_METHODS or method == "given":
         raise ValueError(f"unknown init method: {method!r} "
@@ -279,4 +293,4 @@ def resolve_init(points: torch.Tensor, k: int, method: str, *, weights=None,
         return kmeans_plus_plus(points, k, weights=weights, uniforms=draws,
                                 generator=generator)
     return kmeans_parallel_init(points, k, weights=weights, backend=backend,
-                                draws=draws, generator=generator)
+                                spec=spec, draws=draws, generator=generator)

@@ -7,9 +7,10 @@ oracles, the reference's ``jnp`` role), ``fused`` (the hand-written fused
 kernel, one launch per Lloyd trip), ``resident`` (the whole-solve kernel,
 one launch per subset) or ``batched`` (the whole-solve kernel, one launch
 per stack), or ``twopass`` (the assign kernel, then the centroid-update
-kernel, two launches per Lloyd trip).  ``kmeans`` seeds itself when
-``params.init`` is not ``"given"`` (``core/init.py``); stacks always take
-their seeds.
+kernel, two launches per Lloyd trip), or ``tuned`` (``resident`` with the
+tuning cache's spec).  ``kmeans`` seeds itself when ``params.init`` is not
+``"given"`` (``core/init.py``); stacks always take their seeds.
+``update_minibatch`` is the serving tier's refresh (``core/serve.py``).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ class KMeansParams(NamedTuple):
     max_iters: int = 300
     tol: float = 1e-6             # paper: "until centroids stop moving"
     backend: str = "eager"        # 'eager' | 'twopass' | 'fused' |
-                                  # 'resident' | 'batched' (later: 'tuned')
+                                  # 'resident' | 'batched' | 'tuned'
     reseed_empty: bool = False    # re-seed empty clusters at farthest points
     prune: str = "none"           # 'none' | 'bounds' (bound-gated block
                                   # skipping in the whole-solve kernels; the
@@ -80,6 +81,30 @@ def lloyd_step(points, centroids, mask=None, backend: str = "eager", *,
     sums, counts, shard_sse = engine.step(x.unsqueeze(0), c.unsqueeze(0), w)
     new_c = ref.divide_or_keep(sums[0], counts[0], c.float())
     return new_c.to(c.dtype), shard_sse[0]
+
+
+def update_minibatch(points, centroids, counts, mask=None,
+                     params: KMeansParams = KMeansParams(), *, device=None):
+    """One Sculley mini-batch refresh of a served centroid set:
+    ``points (n,d)``, ``centroids (k,d)``, ``counts (k,)``, optional ``mask
+    (n,)`` (0/1 or weights) -> ``(centroids (k,d) in the centroids' dtype,
+    counts (k,) f32, sse () f32)``.
+
+    Folds one batch into the running centroids with per-centre learning
+    rates ``1 / count`` (``ref.minibatch_merge``); ``counts`` carries the
+    per-centre mass across calls (seed it with the full solve's cluster
+    sizes) and comes back grown by the batch, and ``sse`` scores the batch
+    against the incoming centroids, so a rising series signals drift.
+    Dispatches on ``params.backend`` (``LloydEngine.update_minibatch``: one
+    fused launch on the fused-step engines); the loop controls are unused.
+    Runs on ``device`` (default: CUDA, raising without a card).
+    """
+    engine = engines.get_engine(params.backend)
+    dev = resolve_device(device)
+    w = None if mask is None else as_weights(mask, dev)
+    return engine.update_minibatch(as_float(points, dev),
+                                   as_float(centroids, dev),
+                                   as_weights(counts, dev), w)
 
 
 def _init_backend(backend: str) -> str:

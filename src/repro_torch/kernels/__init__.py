@@ -7,14 +7,15 @@ version, and ``resident`` the same kernel on one subset; ``assign``,
 ``centroid_update`` and ``init`` the assign, centroid-update and k-means||
 init-sweep kernels (``csrc/sweeps.cu``); ``ops`` wraps them; ``engine`` is
 the backend registry (``eager`` | ``twopass`` | ``fused`` | ``resident`` |
-``batched``); ``specs`` the ``KernelSpec`` every single-pass wrapper takes
-as ``spec=`` and the card's ``DeviceProfile``.  Importing this package
-needs no GPU and no compiler: the CUDA sources are built at the first
-launch on a CUDA tensor (``_build``).
+``batched``, and ``tuned`` from ``tuning``); ``specs`` the ``KernelSpec``
+every single-pass wrapper takes as ``spec=`` and the card's
+``DeviceProfile``; ``tuning`` the tuning cache's lookup.  Importing this
+package needs no GPU and no compiler: the CUDA sources are built at the
+first launch on a CUDA tensor (``_build``).
 """
 from repro_torch.kernels import (assign, batch_resident, centroid_update,
                                  engine, fused, init, ops, ref, resident,
-                                 specs)
+                                 specs, tuning)
 
 __all__ = ["assign", "batch_resident", "centroid_update", "engine", "fused",
-           "init", "ops", "ref", "resident", "specs"]
+           "init", "ops", "ref", "resident", "specs", "tuning"]

@@ -15,23 +15,26 @@ written out, so every engine method takes a stack, ``points (M,S,d)``,
     (M,), iters (M,) i32, converged (M,) bool)`` — the reference's vmap of a
     ``lax.while_loop``, as a host loop over launches on the active lanes.
   * ``solve(points, init, weights, ...)`` — one subset, a stack of one.
+  * ``update_minibatch(points, centroids, counts, weights)`` — one
+    mini-batch refresh of one subset: ``step`` on a stack of one lane, then
+    ``ref.minibatch_merge``.
 
 Engines registered: ``eager`` (the reference's ``jnp`` role: plain PyTorch
 oracles), ``twopass`` (the reference's ``pallas`` role: the assign kernel,
 then the centroid-update kernel, two launches per Lloyd trip), ``fused``
 (the hand-written fused kernel, one launch per Lloyd trip), ``resident``
-(the whole-solve kernel, one launch per subset) and ``batched`` (the
-whole-solve kernel, one launch per stack).  ``tuned`` raises
-``NotImplementedError`` naming the slice that ports it, and the reference's
-``pallas`` names the port's ``twopass``.
+(the whole-solve kernel, one launch per subset), ``batched`` (the
+whole-solve kernel, one launch per stack) and, from ``kernels/tuning.py``,
+``tuned`` (``resident`` with the tuning cache's spec).  The reference's
+``pallas`` raises ``NotImplementedError`` naming the port's ``twopass``.
 Points may be float32 or bfloat16, and the seeds' dtype is the carry
 dtype, as in the reference: the per-step loop keeps its state in float32
 but rounds each trip's centroids and reseed picks to the seeds' dtype
 before the shift, the whole-solve kernels do the same on the card, and
 ``solve``/``solve_batched`` return the seeds' dtype.
 ``resolve_spec`` is the hook through which a ``KernelSpec`` reaches the
-kernels (``None``: each kernel's module default); only the still-unported
-``tuned`` engine would override it.
+kernels (``None``: each kernel's module default); the ``tuned`` engine
+overrides it with the tuning cache's lookup.
 ``prune="bounds"`` is accepted everywhere: the whole-solve kernels skip
 score passes with it, and the per-step engines run their exact loop, which
 gives the same result.  Past the whole-solve kernel's shared memory,
@@ -50,7 +53,6 @@ _REGISTRY: dict[str, "LloydEngine"] = {}
 # engine names of the reference the port does not register: why, by name
 # (the ``jnp``/``pallas`` roles are the port's ``eager``/``twopass``)
 LATER = {
-    "tuned": "is not ported yet: it comes in a later slice (kernel tuning)",
     "pallas": "is the reference's name: the port's engine for that role is "
               "'twopass' (convert.BACKEND_NAMES maps it)",
 }
@@ -135,8 +137,26 @@ class LloydEngine:
         """The ``KernelSpec`` for this launch shape, or ``None`` for each
         kernel's module default (``specs.DEFAULT_SPEC`` and
         ``UPDATE_DEFAULT_SPEC``).  ``step`` and ``assign`` pass it to the
-        kernels; the tuning slice's ``tuned`` engine overrides it."""
+        kernels; the ``tuned`` engine overrides it."""
         return None
+
+    def update_minibatch(self, points, centroids, counts, weights=None):
+        """One Sculley mini-batch refresh of one subset: ``points (n,d)``,
+        ``centroids (k,d)``, ``counts (k,)`` f32, ``weights (n,)`` or
+        ``None`` -> ``(centroids (k,d) in the centroids' dtype, counts (k,)
+        f32, sse () f32)``.
+
+        ``step`` on a stack of one lane gives the batch's sums, counts and
+        SSE against the incoming centroids; ``ref.minibatch_merge`` folds
+        them into the running state.  So ``eager`` runs the oracle
+        (``ref.minibatch_update_ref``'s arithmetic), ``twopass`` its assign
+        and update kernels, and the fused-step engines one fused launch."""
+        sums, bcounts, sse = self.step(
+            points.unsqueeze(0), centroids.unsqueeze(0),
+            None if weights is None else weights.unsqueeze(0))
+        new_c, new_counts = ref.minibatch_merge(centroids, counts, sums[0],
+                                                bcounts[0])
+        return new_c.to(centroids.dtype), new_counts, sse[0]
 
     def sse(self, points, centroids, weights=None, lanes=None):
         """Weighted SSE per lane; default: one ``assign`` pass."""

@@ -97,16 +97,18 @@ def _check(x, c, w, lanes, assign_only, what="the fused pass"):
 def plain_assign(x, c, bf16: bool, x2_rows=None):
     """Labels and distances of ``x (L,S,d)`` against ``c (L,k,d)`` in plain
     PyTorch -> ``(labels (L,S) int64, mind (L,S) f32, rows)``: the kernel's
-    score (float32 ``||c||^2 - 2 x.c``, or ``ref.bf16_scores``), the first
-    minimum, ``||x||^2`` of ``x2_rows`` (default: the rows the product
-    read, which come back as ``rows``) added back and clamped at 0."""
+    score (float32 ``||c||^2 - 2 x.c``, the dots from ``ref.row_dots``, so
+    that on the CPU a row's result does not depend on the rows beside it;
+    or ``ref.bf16_scores``), the first minimum, ``||x||^2`` of ``x2_rows``
+    (default: the rows the product read, which come back as ``rows``)
+    added back and clamped at 0."""
     if bf16:
         rows = ref.round_bf16(x)
         scores = ref.bf16_scores(rows, c)
     else:
         rows, cs = x.float(), c.float()
         cn = torch.sum(cs * cs, dim=-1)
-        scores = cn.unsqueeze(1) - 2.0 * (rows @ cs.transpose(1, 2))
+        scores = cn.unsqueeze(1) - 2.0 * ref.row_dots(rows, cs)
     labels = torch.argmin(scores, dim=-1)
     best = torch.gather(scores, -1, labels.unsqueeze(-1)).squeeze(-1)
     xn = rows if x2_rows is None else x2_rows.float()

@@ -70,6 +70,27 @@ def by_row_chunks(fn, points: torch.Tensor, k: int, *args) -> tuple:
     return tuple(torch.cat(t, dim=-1) for t in zip(*parts))
 
 
+def row_dots(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Dot products of ``x (..., n, d)`` with ``c (..., k, d)``, float32
+    operands -> ``(..., n, k)``.
+
+    On the CPU each is a chain of fused multiply-adds over d in index
+    order, one float32 rounding a term (the product is exact in float64).
+    That is the order of the CPU matrix product's kernel, bit for bit, but
+    a matrix product of a few rows takes another kernel and another order,
+    so a bucket's pad rows would move the real rows' bits
+    (``core/serve.py``); here a row's products depend on that row alone.
+    On a card it is a matrix product: nothing there pads a plain
+    version."""
+    if x.device.type != "cpu":
+        return x @ c.transpose(-1, -2)
+    xd, cd = x.double(), c.double()
+    acc = (xd[..., 0:1] * cd[..., 0].unsqueeze(-2)).float()
+    for j in range(1, x.shape[-1]):
+        acc = (acc + xd[..., j:j + 1] * cd[..., j].unsqueeze(-2)).float()
+    return acc
+
+
 # ---- bfloat16 (KernelSpec.acc_dtype="bfloat16") ----
 # The reference's bf16 kernels round their operands, each dot product over
 # the whole of d, and each score ``cn - 2 x.c`` to bfloat16, and round each
@@ -90,7 +111,7 @@ def bf16_scores(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     summed in float32 and rounded; the product of the rounded operands in
     float32, each dot rounded; ``cn - 2 dot`` rounded."""
     cn = round_bf16(torch.sum(c.float() * c.float(), dim=-1))
-    dot = round_bf16(round_bf16(x) @ round_bf16(c).transpose(-1, -2))
+    dot = round_bf16(row_dots(round_bf16(x), round_bf16(c)))
     return round_bf16(cn.unsqueeze(-2) - 2.0 * dot)
 
 
@@ -209,6 +230,43 @@ def lloyd_step_ref(points: torch.Tensor, centroids: torch.Tensor,
     labels, mind = assign_ref(points, centroids)
     sums, counts = centroid_update_ref(points, labels, w, k)
     return sums, counts, torch.sum(w * mind, dim=-1)
+
+
+def minibatch_merge(centroids: torch.Tensor, counts: torch.Tensor,
+                    sums: torch.Tensor, bcounts: torch.Tensor):
+    """Fold one batch's ``(sums (k,d), bcounts (k,))`` into the running
+    ``(centroids (k,d), counts (k,))`` -> ``(new_centroids (k,d) f32,
+    new_counts (k,) f32)``.
+
+    Sculley's sequential mini-batch update with ``eta = w / count`` and
+    the assignments fixed at the batch's start telescopes to the running
+    mean ``(counts c + sums) / (counts + bcounts)``, computed here in
+    float32 in that order.  A centre the batch never touched keeps its
+    coordinates bit for bit (a ``where``, not a ``c n / n`` round trip).
+    The one definition the oracle below and ``LloydEngine.update_minibatch``
+    share."""
+    c = centroids.float()
+    counts = counts.float()
+    new_counts = counts + bcounts
+    new_c = torch.where(bcounts.unsqueeze(-1) > 0.0,
+                        (counts.unsqueeze(-1) * c + sums)
+                        / torch.clamp(new_counts.unsqueeze(-1), min=1.0), c)
+    return new_c, new_counts
+
+
+def minibatch_update_ref(points: torch.Tensor, centroids: torch.Tensor,
+                         counts: torch.Tensor,
+                         weights: torch.Tensor | None = None):
+    """Oracle of one mini-batch refresh: ``(n,d), (k,d), (k,)[, (n,)]`` ->
+    ``(new_centroids (k,d) f32, new_counts (k,) f32, sse () f32)``.  One
+    assign pass, the weighted segment sums, then :func:`minibatch_merge`;
+    ``sse`` scores the batch against the incoming centroids."""
+    w = _as_weights(points, weights)
+    labels, mind = assign_ref(points, centroids)
+    sums, bcounts = centroid_update_ref(points, labels, w,
+                                        centroids.shape[-2])
+    new_c, new_counts = minibatch_merge(centroids, counts, sums, bcounts)
+    return new_c, new_counts, torch.sum(w * mind)
 
 
 # ---- bound-gated block skipping (prune="bounds") ----

@@ -15,14 +15,17 @@
     pass) round each cluster's weighted partial sum over a block of
     ``bn`` rows of the point order to bfloat16, ``bn`` being the clamped
     ``block_n`` of ``tile_shapes`` / ``update_tile_shapes``.
-  * :class:`DeviceProfile` / :func:`get_profile`: one block's opt-in shared
-    memory, the budget the feasibility guards read
-    (``batch_resident.batched_feasible``, ``centroid_update.check_k``).  On
-    a card it is queried from the card; on the CPU it is the H100's row, so
-    the plain versions take the same fallback decisions as the kernels.
+  * :class:`DeviceProfile` / :func:`get_profile`: the card's name
+    (``device_kind``, which keys the tuning cache, ``kernels/tuning.py``)
+    and one block's opt-in shared memory, the budget the feasibility guards
+    read (``batch_resident.batched_feasible``, ``centroid_update.check_k``).
+    On a card it is queried from the card; on the CPU it is the H100's row,
+    so the plain versions take the same fallback decisions, and resolve the
+    same cache entries, as the kernels.
 
 The reference's VMEM pricing (``*_vmem_bytes``, ``batched_group_size``)
-prices TPU memory for its tuner and comes with the port's tuning slice.
+prices TPU memory for its tuner's sweep, which the port does not have yet
+(``kernels/tuning.py`` holds the cache's lookup half).
 """
 from __future__ import annotations
 
@@ -95,6 +98,22 @@ class KernelSpec:
     def acc_bytes(self) -> int:
         return 2 if self.bf16 else 4
 
+    # ---- tuning-cache (de)serialisation, the reference's schema ----
+
+    def to_json(self) -> dict:
+        out = {"block_n": self.block_n, "block_k": self.block_k,
+               "acc_dtype": self.acc_dtype}
+        if self.group_t is not None:       # absent: budget-derived
+            out["group_t"] = self.group_t
+        return out
+
+    @classmethod
+    def from_json(cls, obj: dict) -> "KernelSpec":
+        group_t = obj.get("group_t")
+        return cls(block_n=int(obj["block_n"]), block_k=int(obj["block_k"]),
+                   acc_dtype=str(obj.get("acc_dtype", "float32")),
+                   group_t=None if group_t is None else int(group_t))
+
 
 # the module defaults of the reference's kernels
 DEFAULT_SPEC = KernelSpec(block_n=256, block_k=128)
@@ -121,25 +140,29 @@ def coerce(spec: KernelSpec | None = None, *,
 
 @dataclasses.dataclass(frozen=True)
 class DeviceProfile:
-    """What one block of a launch gets on a card: ``smem_per_block``, the
-    opt-in shared memory per block in bytes (what a kernel may ask for with
-    ``cudaFuncAttributeMaxDynamicSharedMemorySize``)."""
+    """What one block of a launch gets on a card: ``device_kind``, the
+    card's name (``torch.cuda.get_device_name``), and ``smem_per_block``,
+    the opt-in shared memory per block in bytes (what a kernel may ask for
+    with ``cudaFuncAttributeMaxDynamicSharedMemorySize``)."""
 
+    device_kind: str
     smem_per_block: int
 
     def fits(self, nbytes: int) -> bool:
         return nbytes <= self.smem_per_block
 
 
-# what a CPU tensor's plain version budgets with: the H100's opt-in shared
-# memory per block, so it takes the kernels' fallback decisions
-CPU_PROFILE = DeviceProfile(232448)
+# what a CPU tensor's plain version budgets with: the H100's name and opt-in
+# shared memory per block, so it takes the kernels' fallback decisions and
+# reads their tuning-cache entries
+CPU_PROFILE = DeviceProfile("NVIDIA H100 80GB HBM3", 232448)
 
 
 @functools.lru_cache(maxsize=None)
 def _card_profile(index: int) -> DeviceProfile:
     props = torch.cuda.get_device_properties(index)
-    return DeviceProfile(int(props.shared_memory_per_block_optin))
+    return DeviceProfile(torch.cuda.get_device_name(index),
+                         int(props.shared_memory_per_block_optin))
 
 
 def get_profile(device: torch.device | str | None = None) -> DeviceProfile:

@@ -6,8 +6,10 @@ one block a lane, forced with ``solve_stack(..., cluster=R)``); the two-pass
 step's sums bit for bit the fused pass's, on a stack and on one large lane;
 repeat launches bit-identical; the bf16 kernels (``KernelSpec(acc_dtype=
 "bfloat16")``) against their plain versions and the bf16 carry, batched ==
-resident == the fused engine's loop bit for bit.  Marked
-``cuda``; skips without a card.
+resident == the fused engine's loop bit for bit; the serving tier (every
+bucket of ``BucketPolicy()`` bit for bit the unpadded launch, a refresh on
+``fused`` the one on ``twopass``, ``tuned`` with an empty tuning cache the
+``resident`` engine).  Marked ``cuda``; skips without a card.
 Run on a machine with one (no JAX needed, so without the JAX conftest):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -17,9 +19,12 @@ import pytest
 import torch
 
 from repro_torch.core.ipkmeans import IPKMeansConfig, ipkmeans
-from repro_torch.core.kmeans import KMeansParams, kmeans_batched
+from repro_torch.core.kmeans import (KMeansParams, kmeans_batched,
+                                     update_minibatch)
+from repro_torch.core.serve import BucketPolicy, NearestCentroidServer
 from repro_torch.kernels import (assign, batch_resident, centroid_update,
-                                 engine, fused, init, ref, resident, specs)
+                                 engine, fused, init, ref, resident, specs,
+                                 tuning)
 
 pytestmark = pytest.mark.cuda
 
@@ -831,3 +836,84 @@ F32_DIGEST = "4019e53292e18596"
 
 def test_f32_kernels_give_their_earlier_bits(card):
     assert _digest(_f32_outputs(card)) == F32_DIGEST
+
+
+def _serve_case(dev, seed=0, n=5000, k=1024, d=64):
+    g = torch.Generator().manual_seed(seed)
+    centers = torch.rand((k, d), generator=g) * 12.0 - 6.0
+    q = (centers[torch.randint(0, k, (n,), generator=g)]
+         + torch.randn((n, d), generator=g))
+    return q.to(dev), centers.to(dev)
+
+
+def test_serving_buckets_are_the_unpadded_launch_bit_for_bit(card):
+    q, c = _serve_case(card)
+    server = NearestCentroidServer(c, device=card)
+    buckets = BucketPolicy().buckets()
+    before, calls = fused.launches, 0
+    for n in sorted({1, 3, *(b // 2 + 1 for b in buckets), *buckets, 5000}):
+        got = server.assign(q[:n])
+        want = engine.get_engine("fused").assign(q[None, :n], c[None])
+        assert torch.equal(got[0], want[0][0])
+        assert torch.equal(got[1], want[1][0])
+        calls += 1 + -(-n // buckets[-1])
+    assert fused.launches == before + calls     # one a chunk, one unpadded
+    assert server.trace_counts == dict.fromkeys(buckets, 1)
+    sizes = (5, 700, 3000, 400, 4096)
+    tickets = [server.submit(q[:m]) for m in sizes]
+    assert server.step() == tickets[:3] and server.step() == tickets[3:4]
+    assert server.step() == tickets[4:] and server.pending == 0
+    for t, m in zip(tickets, sizes):
+        got, want = server.result(t), server.assign(q[:m])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_refresh_on_fused_is_the_twopass_refresh(card):
+    q, c = _serve_case(card, seed=1, k=300)
+    g = torch.Generator().manual_seed(2)
+    counts = (torch.rand(300, generator=g) * 100).to(card)
+    w = (torch.rand(5000, generator=g) > 0.2).float().to(card)
+    before = (fused.launches, assign.launches, centroid_update.launches)
+    got = update_minibatch(q, c, counts, w, KMeansParams(backend="fused"),
+                           device=card)
+    two = update_minibatch(q, c, counts, w, KMeansParams(backend="twopass"),
+                           device=card)
+    assert (fused.launches, assign.launches, centroid_update.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    # the same labels and sums, so the same merge; the SSE is summed in
+    # another order by each engine
+    assert torch.equal(got[0], two[0]) and torch.equal(got[1], two[1])
+    torch.testing.assert_close(got[2], two[2], rtol=1e-5, atol=0.0)
+    labels = fused.fused_lloyd(q[None], c[None], assign_only=True).labels[0]
+    sums, bcounts = ref.centroid_update_ref(q, labels, w, 300)
+    want_c, want_counts = ref.minibatch_merge(c, counts, sums, bcounts)
+    assert torch.equal(got[1], want_counts)
+    torch.testing.assert_close(got[0], want_c, rtol=1e-5, atol=1e-5)
+    plain = ref.minibatch_update_ref(q, c, counts, w)
+    torch.testing.assert_close(got[2], plain[2], rtol=1e-5, atol=0.0)
+    untouched = bcounts == 0
+    assert torch.equal(got[0][untouched], c[untouched])
+
+
+def test_tuned_without_a_cache_entry_is_resident_bit_for_bit(
+        card, monkeypatch, tmp_path):
+    monkeypatch.setenv(tuning.ENV_CACHE_PATH, str(tmp_path / "none.json"))
+    tuning.reload_cache()
+    x, c, w = _solve_stack(card)
+    runs = []
+    for name in ("tuned", "resident"):
+        before = resident.launches
+        runs.append(engine.get_engine(name).solve_batched(x, c, w, **KW))
+        runs.append(resident.launches - before)
+    assert runs[1] == runs[3] > 0               # the same launches
+    assert _same(runs[0], runs[2])
+    bf16 = specs.KernelSpec(acc_dtype="bfloat16")
+    cache = tuning.TuningCache.load(tmp_path / "bf16.json")
+    cache.put(tuning.cache_key(torch.cuda.get_device_name(card),
+                               torch.float32, x.shape[1], x.shape[2],
+                               c.shape[0]), bf16)
+    monkeypatch.setenv(tuning.ENV_CACHE_PATH, str(cache.save()))
+    tuning.reload_cache()
+    cs = c.expand(x.shape[0], -1, -1).contiguous()
+    step = engine.get_engine("tuned").step(x, cs, w)
+    assert _same(step, fused.fused_lloyd(x, cs, w, spec=bf16))

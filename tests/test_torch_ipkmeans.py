@@ -101,19 +101,16 @@ def test_eager_backend_matches_reference_jnp():
     (dict(kmeans=JParams(backend="tuned")), "tuned"),
 ])
 def test_unported_configs_raise(change, match):
-    """Only what the port still lacks raises ``NotImplementedError`` naming
-    it (the ``tuned`` engine).  The reference's single-process S1 and S3
-    variants, which earlier slices refused, now run (held against the
-    reference in ``tests/test_torch_s1.py``); ``pack="a2a"`` warns and
-    scatters, as the reference's single-process path does."""
+    """Every configuration that earlier slices refused now runs: the
+    reference's single-process S1 and S3 variants (held against the
+    reference in ``tests/test_torch_s1.py``) and the ``tuned`` engine
+    (``tests/test_torch_serve.py``); ``pack="a2a"`` warns and scatters, as
+    the reference's single-process path does."""
     jcfg = dataclasses.replace(JConfig(num_clusters=4, num_subsets=2),
                                **change)
     cfg = convert.config_from_reference(_as_dict(jcfg))
     x = np.random.default_rng(0).normal(size=(32, 2)).astype(np.float32)
-    if cfg.kmeans.backend == "tuned":
-        with pytest.raises(NotImplementedError, match=match):
-            ipkmeans(x, x[:4], cfg, device="cpu")
-        return
+    assert match in repr(cfg)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         got = ipkmeans(x, x[:4], cfg, device="cpu",
@@ -165,7 +162,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels.assign, repro_torch.kernels.centroid_update, "
             "repro_torch.kernels.init, repro_torch.core.pkmeans, "
             "repro_torch.core.merge, repro_torch.core.kdtree, "
-            "repro_torch.kernels.specs, repro_torch.core.io_model\n"
+            "repro_torch.kernels.specs, repro_torch.core.io_model, "
+            "repro_torch.core.serve, repro_torch.kernels.tuning, "
+            "repro_torch.launch.serve_kmeans\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

@@ -29,7 +29,7 @@ from repro_torch.core.pkmeans import pkmeans_sharded
 from repro_torch.kernels import engine
 
 RTOL = ATOL = 1e-4
-ENGINES = ("eager", "twopass", "fused", "resident", "batched")
+ENGINES = ("eager", "twopass", "fused", "resident", "batched", "tuned")
 
 
 def _data():
