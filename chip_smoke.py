@@ -112,9 +112,24 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      and departing rows counted), then the same checks on the f32 kernels
      and on blocks of half the rows, which must fail them; each timed
      beside the f32 kernel and its bound at the bf16 tensor-core peak;
- 16. a ``{"kernels": [...]}`` line (the six kernels and their bf16
-     variants), the card's line, and as the last line
-     ``{"ok": true, "device": {...}}``.
+ 16. [dist]: the distributed pipeline (``repro_torch.distributed``) on 4
+     ranks started by ``distributed/world.py`` (NCCL with a card a rank
+     where the machine has 4, else gloo on ``cuda:0`` with every
+     collective through host memory), at the main size: the flat (4,)
+     mesh on ``batched`` (one whole-solve launch a rank, zero collectives
+     in S2) bit for bit [main]'s single-process run; the sharded
+     k-means|| seeding with [seed]'s seeds; the (2, 2) pod path with
+     ``exact`` (SSE within rtol 1e-4 of a single-process
+     ``s1="histogram"`` run, equal lane iterations) and ``int8ef`` (about
+     a quarter of exact's wire bytes a lane-trip; its lanes against a
+     plain version of the reduction on the same pod slices);
+     ``pkmeans_sharded`` on ``twopass`` (one all-reduce of K d + K floats
+     a trip) against the single-process job, and one trip of it against
+     one single-process trip; each rank's stage times, launches,
+     collectives and bytes by stage, and peak memory;
+ 17. a ``{"kernels": [...]}`` line (the six kernels and their bf16
+     variants; ``launches_by_path`` with the distributed paths), the
+     card's line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no last line.  Without a CUDA
 card, or without the repository's ``src/repro_torch`` beside this file, it
@@ -1305,6 +1320,13 @@ def phase_serve(torch, report: dict, main: dict) -> bool:
             print(f"[serve] bucket {b}: device time a dispatch "
                   f"{sum(dev_rep[b].values()):.4f} ms by kernel {dev_rep[b]}"
                   f", p50 latency {p50:.4f} ms; {smi}", flush=True)
+        # the library yardstick of an assign-only dispatch (matmul scores
+        # and the row min/argmin) at the smallest and largest bucket
+        lib_rep = {b: cuda_time_ms(lambda: library_scores(rows[:b], cents),
+                                   reps=20)
+                   for b in (policy.buckets()[0], top)}
+        print(f"[serve] library yardstick of a dispatch by rows "
+              f"(CUDA events): {lib_rep}; {smi}", flush=True)
 
         # coalesced submit/step against direct assigns and the FIFO rule
         co = stream[:SERVE_COALESCE - 1] + [SERVE_BIG_ROWS]
@@ -1360,12 +1382,19 @@ def phase_serve(torch, report: dict, main: dict) -> bool:
             ref_ok = ref_ok and good
             dev_ms = cuda_time_ms(lambda: update_minibatch(
                 batch, c0, n0, params=fused_p, device=dev), reps=5)
+            step_ms = cuda_time_ms(lambda: fused.fused_lloyd(
+                batch[None], c0[None], ones[None]), reps=5)
+            lib_ms = cuda_time_ms(lambda: library_step(
+                batch[None], c0[None], ones[None]), reps=5)
             bound, by_what = step_bound_ms(1, SERVE_REFRESH_ROWS, D, K)
             ref_rep.append(dict(host_ms=host_ms, device_ms=dev_ms,
+                                step_ms=step_ms, library_ms=lib_ms,
                                 bound_ms=bound, sse=float(sse)))
             print(f"[serve] refresh {r}: {host_ms:.4f} ms host clock "
                   f"(merge and SSE read included), {dev_ms:.4f} ms a "
-                  f"refresh by CUDA events, bound {bound:.4f} ms "
+                  f"refresh by CUDA events (its fused step {step_ms:.4f} "
+                  f"ms, the library yardstick {lib_ms:.4f} ms), bound "
+                  f"{bound:.4f} ms "
                   f"({by_what}); twopass: centroids and counts bit for bit "
                   f"{bits}, SSE rel {sse_rel:.3g} (rtol {MAIN_SSE_RTOL}); "
                   f"plain: sums worst {sums_err:.3g} of their magnitude "
@@ -1438,7 +1467,8 @@ def phase_serve(torch, report: dict, main: dict) -> bool:
     print(json.dumps({"serve": dict(
         device=smi, dispatches=len(stream), rows=sum(stream),
         wall_s=wall, rows_per_s=sum(stream) / wall, latency=lat_rep,
-        device_ms=dev_rep, refreshes=ref_rep, launches=stream_counts)}),
+        device_ms=dev_rep, library_ms=lib_rep, refreshes=ref_rep,
+        launches=stream_counts)}),
         flush=True)
     print(f"[serve] the phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
@@ -1697,7 +1727,12 @@ def phase_update(torch, report: dict, main: dict, big) -> bool:
                             4.0 * (n1 * (D + 2) + k1 * (D + 1)))
     skew_ms = cuda_time_ms(lambda: centroid_update.centroid_update(
         xs1, labs, w1, k1), reps=3, warmup=1)
-    n_valid = int(((labs >= 0) & (labs < k1)).sum())
+    valid = (labs >= 0) & (labs < k1)
+    n_valid = int(valid.sum())
+    # the yardstick takes in-range labels only: the rows labelled -1 or k
+    # carry weight 0
+    skew_lib_ms = cuda_time_ms(lambda: library_update(
+        xs1, labs.clamp(0, k1 - 1), w1 * valid, k1), reps=3, warmup=1)
     skew_bound, _ = bound_ms(2.0 * n_valid * D,
                              4.0 * (n_valid * D + 2 * n1 + k1 * (D + 1)))
     passes = {tag: pass_times(torch, fn) for tag, fn in (
@@ -1715,7 +1750,8 @@ def phase_update(torch, report: dict, main: dict, big) -> bool:
           f"{bound:.4f} ms ({by}); one lane of {n1} points, k={k1}: kernel "
           f"{big_ms:.4f} ms, library yardstick {big_lib_ms:.4f} ms, bound "
           f"{big_bound:.4f} ms; the skewed lane: kernel {skew_ms:.4f} ms, "
-          f"bound {skew_bound:.4f} ms", flush=True)
+          f"library yardstick {skew_lib_ms:.4f} ms, bound "
+          f"{skew_bound:.4f} ms", flush=True)
     report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                   library_ms=lib_ms,
                   max_abs_err=max(err, err_big, err_skew),
@@ -1724,6 +1760,7 @@ def phase_update(torch, report: dict, main: dict, big) -> bool:
                   one_lane_bound_ms=big_bound,
                   one_lane_chunk_plan=[plan1.rows, plan1.chunks],
                   skewed_ms=skew_ms, skewed_bound_ms=skew_bound,
+                  skewed_library_ms=skew_lib_ms,
                   passes=passes)
     return True
 
@@ -1970,6 +2007,7 @@ def phase_seed(torch, init_rep: dict, assign_rep: dict, main: dict) -> bool:
     # the seeding path's count; the twopass path's stands beside it
     assign_rep["launches"] = counts["assign"]
     assign_rep["launches_by_path"] = {"kmeans|| seeding": counts["assign"]}
+    main["kpar_seeds"] = seeds
     ok = (main["sane"](res) and torch.equal(job_seeds, seeds)
           and torch.equal(st[5].iters, res.subset_iters)
           and counts == counts_of(init_sweep=rounds + 1, assign=1,
@@ -2750,6 +2788,407 @@ def phase_bf16(torch, main: dict):
     return out
 
 
+# [dist]: ranks of the distributed pipeline (distributed/world.py), the
+# seconds before their world is killed, and the int8 error-feedback bars:
+# its wire bytes a lane-trip against exact's (int8 values plus f32 scales:
+# 0.265 at d = 64), and its lanes against a plain version of the reduction
+# run in this process on the same pod slices and the same fused steps
+# (iterations exact, centroids within INT8EF_RTOL of max(|c|, 1): the same
+# operations in the same order).  Its SSE against exact's is printed, not
+# gated: the reference's bar there (1e-3) fails for the reference itself
+# (tests/test_torch_distributed.py holds the port's int8ef to the
+# reference's on a small input)
+DIST_RANKS = 4
+DIST_DEADLINE = 300.0
+INT8EF_BYTES = 0.3
+INT8EF_RTOL = 1e-6
+
+
+def dist_rank(rank, world_size, device, paths, n, k, m):
+    """[dist] on one rank (``distributed/world.py`` calls it in each rank's
+    process): the main input (``n`` points, ``k`` seeds, ``m`` subsets)
+    made from the seed on the rank's device and kept on the host, then
+    each path through its entry point, the kernel launch counts and the
+    collective counts set to 0 just before and read just after, with the
+    stage times, the wall time and the peak device memory.  Returns each
+    path's numbers and results (rank 0 also the flat run's intermediate
+    centroids)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import IPKMeansConfig, KMeansParams
+    from repro_torch.core.init import kmeans_parallel_init
+    from repro_torch.core.ipkmeans import ipkmeans_distributed
+    from repro_torch.core.pkmeans import pkmeans_sharded
+    from repro_torch.distributed import comm, sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = device.type == "cuda"
+    x = mixture(torch.Generator(device=device).manual_seed(SEED), n, D, k,
+                device)
+    init = x[torch.as_tensor(np.random.default_rng(SEED).choice(
+        n, k, replace=False), device=device)]
+    host = x.cpu()
+    del x
+    if cuda:
+        torch.cuda.empty_cache()
+    flat = sharding.kmeans_data_mesh(world_size)
+    pod = sharding.kmeans_pod_mesh(2, world_size // 2)
+    data = (sharding.KMEANS_DATA_AXIS,)
+
+    def params(backend, reseed, max_iters=MAX_ITERS):
+        return KMeansParams(max_iters=max_iters, tol=TOL, backend=backend,
+                            reseed_empty=reseed)
+
+    def cfg(reseed, reduce="exact"):
+        return IPKMeansConfig(num_clusters=k, num_subsets=m, reduce=reduce,
+                              kmeans=params("batched", reseed))
+
+    runs = {
+        "flat": lambda: ipkmeans_distributed(host, init, cfg(True), flat,
+                                             data, device=device),
+        "kmeans||": lambda: kmeans_parallel_init(
+            host, k, generator=torch.Generator(device=device).manual_seed(
+                SEED), return_stats=True, mesh=flat, axis_names=data,
+            device=device),
+        "pod exact": lambda: ipkmeans_distributed(
+            host, init, cfg(False), pod, data, sharding.KMEANS_POD_AXIS,
+            device=device),
+        "pod int8ef": lambda: ipkmeans_distributed(
+            host, init, cfg(False, "int8ef"), pod, data,
+            sharding.KMEANS_POD_AXIS, device=device),
+        "pkmeans": lambda: pkmeans_sharded(flat, data, params(
+            "twopass", False))(host, init, device=device),
+        "pkmeans 1 trip": lambda: pkmeans_sharded(flat, data, params(
+            "twopass", False, 1))(host, init, device=device),
+    }
+    out = {}
+    for name in paths:
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        comm.reset(timed=True)
+        t0 = time.perf_counter()
+        res = runs[name]()
+        if cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rec = dict(secs=secs, launches=read_counts(), comm=comm.read(),
+                   stage_s=dict(comm.seconds),
+                   peak_gb=(torch.cuda.max_memory_allocated(device) / 1e9
+                            if cuda else 0.0))
+        if name == "kmeans||":
+            rec.update(seeds=res[0].cpu(), psi=res[1]["psi"],
+                       candidates=res[1]["candidates"])
+        elif name.startswith("pkmeans"):
+            rec.update(centroids=res.centroids.cpu(), sse=float(res.sse),
+                       iters=int(res.iters))
+        else:
+            rec.update(centroids=res.centroids.cpu(), sse=float(res.sse),
+                       subset_iters=res.subset_iters.cpu())
+            if name in ("flat", "pod int8ef") and rank == 0:
+                rec["intermediate"] = res.intermediate.cpu()
+        out[name] = rec
+    return out
+
+
+def plain_int8ef(torch, slices, masks, init, max_iters: int, tol: float):
+    """The cross-pod S2 with ``reduce="int8ef"`` for one column of lanes,
+    in plain PyTorch in one process: ``slices[p] (L, S_p, d)`` and
+    ``masks[p]`` are pod ``p``'s points of the column's lanes.  Each trip,
+    each pod's (sums, counts) of the active lanes come from the fused step
+    (the kernel [fused] holds against its plain version), then the
+    reduction written out here apart from ``distributed/compress.py``: per
+    row, ``v = stats + residual``, scale ``amax * f32(1/127)`` (1 where
+    ``amax`` is 0), ``q = clamp(round(v / scale), +-127)``, the residual ``v
+    - q scale`` kept for the next trip, the pods' ``q scale`` summed in pod
+    order (each after the first in one rounding); the divide keeps an
+    empty cluster's centroid; the lane's stop threshold widens to the
+    noise floor ``sqrt(d) max_k (e_s + max|c| e_n) / max(n - e_n, 1)``
+    with ``e`` half the pods' scales summed.  -> ``(centroids (L, k, d),
+    iters (L,))``."""
+    from repro_torch.kernels import engine as engines
+    step = engines.get_engine("batched").step
+    pods = len(slices)
+    lanes_n, (k, d) = slices[0].shape[0], init.shape
+    dev = slices[0].device
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
+    c = init.float().expand(lanes_n, k, d).clone()
+    iters = torch.zeros(lanes_n, dtype=torch.int32, device=dev)
+    shift = torch.full((lanes_n,), torch.inf, device=dev)
+    stop = torch.full((lanes_n,), tol, device=dev)
+    res = [[torch.zeros((lanes_n, k, d), device=dev),
+            torch.zeros((lanes_n, k), device=dev)] for _ in range(pods)]
+
+    def quantize(v):
+        amax = torch.amax(torch.abs(v), dim=-1, keepdim=True)
+        scale = torch.where(amax > 0.0, amax, 127.0) * inv127
+        return torch.clamp(torch.round(v / scale), -127.0, 127.0), scale
+
+    while True:
+        act = (iters < max_iters) & (shift > stop)
+        lanes = torch.nonzero(act).flatten().to(torch.int32)
+        if lanes.numel() == 0:
+            break
+        sel = lanes.long()
+        acc = [None, None]
+        half = [None, None]
+        for p in range(pods):
+            sums, counts, _ = step(slices[p], c, masks[p], lanes)
+            for j, stat in enumerate((sums, counts)):
+                v = stat + res[p][j][sel]
+                q, scale = quantize(v)
+                res[p][j][sel] = (v.double() - q.double()
+                                  * scale.double()).float()
+                if p == 0:
+                    acc[j], half[j] = q * scale, scale
+                else:
+                    acc[j] = (acc[j].double()
+                              + q.double() * scale.double()).float()
+                    half[j] = half[j] + scale
+        e_s, e_n = 0.5 * half[0][..., 0], 0.5 * half[1]
+        cnt = torch.clamp(acc[1], min=0.0)
+        old = c[sel]
+        upd = torch.where(cnt.unsqueeze(-1) > 0.0,
+                          acc[0] / torch.clamp(cnt, min=1.0).unsqueeze(-1),
+                          old)
+        noise = torch.where(
+            cnt > 0.0, (e_s + torch.amax(torch.abs(upd), dim=-1) * e_n)
+            / torch.clamp(cnt - e_n, min=1.0), 0.0)
+        stop[sel] = torch.clamp(
+            torch.sqrt(torch.tensor(float(d), device=dev))
+            * torch.amax(noise, dim=-1), min=tol)
+        c[sel] = upd
+        shift[sel] = torch.amax(torch.sqrt(torch.sum((upd - old) ** 2,
+                                                     dim=-1)), dim=-1)
+        iters[sel] += 1
+    return c, iters
+
+
+def phase_dist(torch, reports: dict, main: dict) -> bool:
+    """[dist]: the distributed pipeline on DIST_RANKS ranks (NCCL with a
+    card a rank where the machine has that many, else gloo on cuda:0,
+    every collective through host memory), at the main path's size: the
+    flat (4,) mesh on ``batched`` (one whole-solve launch a rank, no
+    collective in S2), intermediate centroids and lane iterations bit for
+    bit [main]'s single-process run; the sharded k-means|| seeding against
+    [seed]'s seeds (same draws; every row equal); the (2, 2) pod path with
+    ``exact`` (SSE within rtol 1e-4 of a single-process
+    ``s1="histogram"`` run, lane iterations equal) and ``int8ef`` (its
+    wire bytes a lane-trip against exact's; its lanes against
+    ``plain_int8ef``, iterations exact and centroids within INT8EF_RTOL;
+    its SSE against exact's printed); ``pkmeans_sharded`` on ``twopass``
+    (one all-reduce of K d + K floats a trip) against the single-process
+    job with the same settings, and one trip of it against one
+    single-process trip (centroids within PK_RTOL of max(|c|, 1)).  Per
+    rank: stage times, launches, collectives and bytes by stage, peak
+    memory."""
+    from repro_torch.core import IPKMeansConfig, KMeansParams, ipkmeans
+    from repro_torch.core import init as seeding
+    from repro_torch.core import pkmeans
+    from repro_torch.core.ipkmeans import _partition_and_pack
+    from repro_torch.distributed import world
+    dev = main["x"].device
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    backend = world.pick_backend(dev.type, DIST_RANKS)
+    cards = min(torch.cuda.device_count(), DIST_RANKS)
+    # the ranks share the card with this process: hand its cached blocks
+    # back first
+    torch.cuda.empty_cache()
+    how = ("a card a rank" if backend == "nccl" else
+           "ranks share cuda:0, collectives through host memory")
+    print(f"[dist] {DIST_RANKS} ranks on {backend} over {cards} card(s) "
+          f"({how}); n={N} d={D} K={K} M={M}; this process holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; {smi}", flush=True)
+    paths = ("flat", "kmeans||", "pod exact", "pod int8ef", "pkmeans",
+             "pkmeans 1 trip")
+    t0 = time.perf_counter()
+    outs = world.run(dist_rank, DIST_RANKS, args=(paths, N, K, M),
+                     device=dev.type, deadline=DIST_DEADLINE)
+    wall = time.perf_counter() - t0
+    for r, o in enumerate(outs):
+        for name in paths:
+            rec = o[name]
+            print(f"[dist] rank {r} {name}: {rec['secs']:.3f} s, stages "
+                  + json.dumps({k: round(v, 4)
+                                for k, v in rec["stage_s"].items()})
+                  + f", launches {rec['launches']}, collectives "
+                  f"{json.dumps(rec['comm'])}, peak memory "
+                  f"{rec['peak_gb']:.2f} GB", flush=True)
+
+    # the single-process runs to hold them against
+    x, init = main["x"], main["init"]
+    hist_cfg = IPKMeansConfig(num_clusters=K, num_subsets=M, s1="histogram",
+                              kmeans=KMeansParams(max_iters=MAX_ITERS,
+                                                  tol=TOL, backend="batched"))
+    single_hist = ipkmeans(x, init, hist_cfg, device=dev)
+    pk_params = KMeansParams(max_iters=MAX_ITERS, tol=TOL, backend="twopass")
+    single_pk = pkmeans(x, init, None, pk_params, device=dev)
+    single_pk1 = pkmeans(x, init, None, pk_params._replace(max_iters=1),
+                         device=dev)
+    _, kpar_stats = seeding.kmeans_parallel_init(
+        x, K, generator=torch.Generator(device=dev).manual_seed(SEED),
+        return_stats=True)
+    res_b = main["res_b"]
+
+    flat = [o["flat"] for o in outs]
+    bits = (torch.equal(flat[0]["intermediate"], res_b.intermediate.cpu())
+            and all(torch.equal(f["subset_iters"], res_b.subset_iters.cpu())
+                    for f in flat)
+            and all(torch.equal(f["centroids"], res_b.centroids.cpu())
+                    for f in flat))
+    s2_calls = [f["comm"].get("s2", {}).get("calls", 0) for f in flat]
+    one_launch = all(f["launches"] == counts_of(lloyd_solve_batched=1)
+                     for f in flat)
+    print(f"[dist] flat: intermediate centroids, lane iterations and final "
+          f"centroids bit for bit [main]'s single-process run {bits}; S2 "
+          f"collectives by rank {s2_calls}; one whole-solve launch a rank "
+          f"and no other {one_launch}; SSE {flat[0]['sse']:.6e} "
+          f"(single-process {float(res_b.sse):.6e})", flush=True)
+    ok = bits and s2_calls == [0] * DIST_RANKS and one_launch
+
+    kp = [o["kmeans||"] for o in outs]
+    psi_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                  for a, b in zip(kp[0]["psi"], kpar_stats["psi"]))
+    seed_rows = int((kp[0]["seeds"] != main["kpar_seeds"].cpu())
+                    .any(dim=1).sum())
+    same_ranks = all(torch.equal(k["seeds"], kp[0]["seeds"]) for k in kp)
+    rounds = len(kpar_stats["psi"])
+    kp_counts = all(k["launches"] == counts_of(init_sweep=rounds, assign=1)
+                    for k in kp)
+    print(f"[dist] kmeans||: potentials within {psi_rel:.3g} (rel) of the "
+          f"single-process seeding's, candidates {kp[0]['candidates']} "
+          f"against {kpar_stats['candidates']}; seed rows differing from "
+          f"[seed]'s {seed_rows} of {K}; every rank the same seeds "
+          f"{same_ranks}; {rounds} sweeps and 1 assign a rank "
+          f"{kp_counts}", flush=True)
+    ok = (ok and same_ranks and kp_counts and psi_rel <= INIT_REL
+          and seed_rows == 0)
+
+    ex = [o["pod exact"] for o in outs]
+    q8 = [o["pod int8ef"] for o in outs]
+    ex_rel = abs(ex[0]["sse"] - float(single_hist.sse)) / float(
+        single_hist.sse)
+    q_rel = abs(q8[0]["sse"] - ex[0]["sse"]) / ex[0]["sse"]
+    # rank 0 is pod 0, data column 0: it solves the first M / 2 lanes
+    mine = slice(0, M // (DIST_RANKS // 2))
+    lane_trips = [int(e["subset_iters"][mine].sum()) for e in (ex[0], q8[0])]
+    per_trip = [e["comm"]["s2"]["bytes"] / t
+                for e, t in zip((ex[0], q8[0]), lane_trips)]
+    ratio = per_trip[1] / per_trip[0]
+    replicated = all(e["sse"] == ex[0]["sse"] for e in ex) and all(
+        e["sse"] == q8[0]["sse"] for e in q8)
+    same_iters = torch.equal(ex[0]["subset_iters"],
+                             single_hist.subset_iters.cpu())
+    print(f"[dist] pod exact: SSE {ex[0]['sse']:.6e} against the "
+          f"single-process s1=histogram run's {float(single_hist.sse):.6e} "
+          f"(rel {ex_rel:.3g}, rtol {PK_RTOL}); lane iterations equal "
+          f"{same_iters}; pod int8ef: SSE {q8[0]['sse']:.6e}, rel "
+          f"{q_rel:.3g} of exact's; S2 bytes a lane-trip "
+          f"{per_trip[1]:.0f} against exact's {per_trip[0]:.0f} "
+          f"(ratio {ratio:.4f}, bar {INT8EF_BYTES}); every rank the same "
+          f"SSE {replicated}", flush=True)
+    ok = (ok and ex_rel <= PK_RTOL and same_iters and ratio <= INT8EF_BYTES
+          and replicated and 0.0 < q8[0]["sse"] < main["one"])
+
+    # int8ef against its plain version: the pods' slices of each data
+    # column from the single-process histogram S1 and scatter pack (the
+    # sharded S1's ids bit for bit), the capacity padded to a multiple of
+    # the pods
+    pods, cols = 2, DIST_RANKS // 2
+    _, pack, pmask = _partition_and_pack(x, hist_cfg)
+    pad = -pack.shape[1] % pods
+    pack = torch.nn.functional.pad(pack, (0, 0, 0, pad))
+    pmask = torch.nn.functional.pad(pmask, (0, pad)).float()
+    half, per_col = pack.shape[1] // pods, M // cols
+    plain_c, plain_it = [], []
+    for j in range(cols):
+        lanes = slice(j * per_col, (j + 1) * per_col)
+        c_j, it_j = plain_int8ef(
+            torch, [pack[lanes, p * half:(p + 1) * half].contiguous()
+                    for p in range(pods)],
+            [pmask[lanes, p * half:(p + 1) * half].contiguous()
+             for p in range(pods)], init, MAX_ITERS, TOL)
+        plain_c.append(c_j.cpu())
+        plain_it.append(it_j.cpu())
+    del pack, pmask
+    plain_c, plain_it = torch.cat(plain_c), torch.cat(plain_it)
+    q8_c = q8[0]["intermediate"]
+    q8_err = float(torch.max(torch.abs(q8_c - plain_c)
+                             / torch.clamp(torch.abs(plain_c), min=1.0)))
+    q8_iters = torch.equal(q8[0]["subset_iters"], plain_it.int())
+    print(f"[dist] pod int8ef against its plain version (the reduction in "
+          f"plain PyTorch on the same pod slices and fused steps): lane "
+          f"iterations equal {q8_iters} (min/median/max "
+          f"{int(plain_it.min())}/{int(plain_it.median())}/"
+          f"{int(plain_it.max())}), intermediate centroids within "
+          f"{q8_err:.3g} of max(|c|, 1) (bar {INT8EF_RTOL})", flush=True)
+    ok = ok and q8_iters and q8_err <= INT8EF_RTOL
+
+    pk = [o["pkmeans"] for o in outs]
+    trips = pk[0]["iters"]
+    per = 4 * (K * D + K)
+    pk_comm = all(p["comm"]["pkmeans"] == {"calls": trips,
+                                            "bytes": trips * per}
+                  for p in pk)
+    pk_rel = abs(pk[0]["sse"] - float(single_pk.sse)) / float(single_pk.sse)
+    c_diff = float(torch.max(torch.abs(pk[0]["centroids"]
+                                       - single_pk.centroids.cpu())))
+    # one trip from the seeds: the same labels (a point's scores do not
+    # depend on its row block), the sums in another order
+    pk1 = [o["pkmeans 1 trip"] for o in outs]
+    c1 = single_pk1.centroids.cpu()
+    pk1_err = max(float(torch.max(torch.abs(p["centroids"] - c1)
+                                  / torch.clamp(torch.abs(c1), min=1.0)))
+                  for p in pk1)
+    pk_ok = (trips == int(single_pk.iters) and pk_rel <= PK_RTOL and pk_comm
+             and all(p["launches"] == counts_of(
+                 assign=trips + 1, centroid_update=trips) for p in pk)
+             and all(p["iters"] == 1 for p in pk1) and pk1_err <= PK_RTOL)
+    red_ms = pk[0]["stage_s"]["pkmeans"] / trips * 1e3
+    trip_ms = (pk[0]["secs"] - pk[0]["stage_s"]["sse"]) / trips * 1e3
+    print(f"[dist] pkmeans_sharded on twopass: {trips} trips (single "
+          f"process {int(single_pk.iters)}), one all-reduce of {per} bytes "
+          f"a trip {pk_comm}, {red_ms:.3f} ms of a {trip_ms:.3f} ms trip on "
+          f"rank 0 ({red_ms / trip_ms:.3f}); SSE {pk[0]['sse']:.6e} against "
+          f"{float(single_pk.sse):.6e} (rel {pk_rel:.3g}, rtol {PK_RTOL}); "
+          f"largest centroid difference {c_diff:.3g} after {trips} trips, "
+          f"{pk1_err:.3g} of max(|c|, 1) after one (rtol {PK_RTOL}); passes "
+          f"{pk_ok}", flush=True)
+    ok = ok and pk_ok
+
+    a_rank = "dist, a rank"
+    reports["lloyd_solve_batched"].setdefault("launches_by_path", {})[
+        f"{a_rank}: flat ipkmeans"] = flat[0]["launches"][
+            "lloyd_solve_batched"]
+    fused_paths = reports["fused_lloyd"].setdefault("launches_by_path", {})
+    fused_paths[f"{a_rank}: pod exact"] = ex[0]["launches"]["fused_lloyd"]
+    fused_paths[f"{a_rank}: pod int8ef"] = q8[0]["launches"]["fused_lloyd"]
+    reports["assign"]["launches_by_path"].update({
+        f"{a_rank}: kmeans||": kp[0]["launches"]["assign"],
+        f"{a_rank}: pkmeans twopass": pk[0]["launches"]["assign"]})
+    reports["centroid_update"]["launches_by_path"][
+        f"{a_rank}: pkmeans twopass"] = pk[0]["launches"]["centroid_update"]
+    reports["init_sweep"].setdefault("launches_by_path", {})[
+        f"{a_rank}: kmeans||"] = kp[0]["launches"]["init_sweep"]
+    print(json.dumps({"dist": dict(
+        device=smi, backend=backend, ranks=DIST_RANKS, world_s=wall,
+        by_rank=[{name: {k: v for k, v in o[name].items()
+                         if not isinstance(v, torch.Tensor)}
+                  for name in paths} for o in outs],
+        pod_exact_rel=ex_rel, int8ef_rel=q_rel, int8ef_bytes_ratio=ratio,
+        pkmeans_rel=pk_rel, pkmeans_one_trip_rel=pk1_err,
+        int8ef_plain_rel=q8_err, pkmeans_reduce_ms=red_ms,
+        pkmeans_trip_ms=trip_ms, kpar_psi_rel=psi_rel,
+        kpar_seed_rows=seed_rows)}), flush=True)
+    print(f"[dist] the phase took {time.perf_counter() - t_phase:.1f} s (the "
+          f"world {wall:.1f} s)", flush=True)
+    if not ok:
+        print("[dist] FAIL", flush=True)
+    return ok
+
+
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2829,6 +3268,9 @@ def main() -> int:
     bf16 = phase_bf16(torch, main_run)
     if bf16 is None:
         return fail("bfloat16 carry and bf16-accumulate kernels")
+    if not phase_dist(torch, {r["name"]: r for r in (
+            report, batched, assign_rep, update_rep, init_rep)}, main_run):
+        return fail("distributed pipeline")
     variants = [{"name": r["name"] + "[bf16]", "route": r["route"],
                  "source": r["source"], "replaces": r["replaces"],
                  **bf16[r["name"]]}

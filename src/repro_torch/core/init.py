@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import metrics
+from repro_torch.distributed import comm, sharding
 from repro_torch.kernels import ref
 
 #: strategies understood by the pipeline (``KMeansParams.init`` /
@@ -158,19 +159,46 @@ def _sweep(backend: str, spec=None):
     return ref.init_sweep_ref
 
 
+class Shard(NamedTuple):
+    """One rank's part of a sharded k-means|| (``core/ipkmeans.py`` with a
+    mesh): its row block of the points and of the weights on its device,
+    the block's first global row, its columns of the round draws, and the
+    process group the block's partial results reduce over."""
+    x: torch.Tensor
+    weights: torch.Tensor
+    lo: int
+    rounds: torch.Tensor
+    grp: object
+
+
+def _rows(points, idx: torch.Tensor, device) -> torch.Tensor:
+    """Rows ``idx`` of ``points`` (any device) on ``device``."""
+    return points[idx.to(points.device)].to(device)
+
+
 def oversample(points: torch.Tensor, draws: KMeansParallelDraws, *,
                ell: float, weights: torch.Tensor, backend: str = "kernel",
-               spec=None):
+               spec=None, shard: Shard | None = None):
     """The k-means|| rounds: the weighted-uniform first pick, then sweeps
     0..rounds (sweep r folds round r-1's draws and draws round r's; round 0
     has ``psi_prev = 0`` and draws nothing).  -> ``(pool (c,) int64, mind
     (n,), psi trace [float])``: the pool is the sorted distinct
     candidates, topped up with the farthest points (stable order) when it
     holds fewer than ``len(draws.recluster)``.  ``spec`` is the init-sweep
-    kernel's (``backend="kernel"`` only)."""
+    kernel's (``backend="kernel"`` only).
+
+    With ``shard`` each sweep runs on the rank's row block with its columns
+    of the draws, against candidates taken from the global ``points``; the
+    potential is all-reduced, the drawn global rows all-gathered (ragged,
+    in rank order: the single-device order), and ``mind`` is the block's.
+    The draws equal the single-device ones except where a sum order moves
+    ``u * psi_prev < ell * mind`` across its boundary."""
     n = points.shape[0]
     k = draws.recluster.shape[0]
     sweep = _sweep(backend, spec)
+    x = points if shard is None else shard.x
+    w = weights if shard is None else shard.weights
+    rounds = draws.rounds if shard is None else shard.rounds
     # the first pick's probabilities are normalised in float64, then used in
     # float32, as the reference does on the host
     probs = weights.double()
@@ -179,22 +207,27 @@ def oversample(points: torch.Tensor, draws: KMeansParallelDraws, *,
              else torch.full_like(probs, 1.0 / n))
     new_idx = _choice(probs.float(), draws.first)
     picks = [new_idx]
-    mind = torch.full((n,), torch.inf, dtype=torch.float32,
-                      device=points.device)
-    psi = torch.zeros((), dtype=torch.float32, device=points.device)
+    mind = torch.full((x.shape[0],), torch.inf, dtype=torch.float32,
+                      device=x.device)
+    psi = torch.zeros((), dtype=torch.float32, device=x.device)
     trace = []
-    for r in range(draws.rounds.shape[0]):
-        mind, sampled, psi = sweep(points, points[new_idx], mind,
-                                   draws.rounds[r], psi, ell=ell,
-                                   weights=weights)
-        trace.append(psi)
+    for r in range(rounds.shape[0]):
+        mind, sampled, psi = sweep(x, _rows(points, new_idx, x.device), mind,
+                                   rounds[r], psi, ell=ell, weights=w)
         new_idx = torch.nonzero(sampled).flatten()
+        if shard is not None:
+            psi = comm.all_reduce(psi, shard.grp)
+            new_idx = torch.cat(comm.all_gather_ragged(new_idx + shard.lo,
+                                                       shard.grp))
+        trace.append(psi)
         picks.append(new_idx)
     trace = torch.stack(trace).tolist()
     pool = torch.unique(torch.cat(picks))
     if pool.numel() < k:
         # degenerate draw (tiny n or ell): the farthest points fill the pool
-        order = torch.sort(-mind, stable=True).indices
+        every = (mind if shard is None else
+                 torch.cat(comm.all_gather_ragged(mind, shard.grp)))
+        order = torch.sort(-every, stable=True).indices
         extra = order[~torch.isin(order, pool)][:k - pool.numel()]
         pool = torch.cat([pool, extra])
     return pool, mind, trace
@@ -202,10 +235,12 @@ def oversample(points: torch.Tensor, draws: KMeansParallelDraws, *,
 
 def candidate_weights(points: torch.Tensor, cands: torch.Tensor,
                       weights: torch.Tensor, backend: str = "kernel",
-                      spec=None):
+                      spec=None, grp=None):
     """The point mass each candidate captures: one assign pass (the assign
     kernel with ``spec``, or ``ref.assign_ref``), then ``index_add_`` of the
-    weights by label, as the reference leaves that scatter to XLA."""
+    weights by label, as the reference leaves that scatter to XLA.  With a
+    process group ``grp``, ``points`` and ``weights`` are a rank's block
+    and the masses are all-reduced over it."""
     if backend == "kernel":
         from repro_torch.kernels.assign import assign
         labels = assign(points, cands, spec=spec).labels
@@ -213,7 +248,8 @@ def candidate_weights(points: torch.Tensor, cands: torch.Tensor,
         labels = ref.assign_ref(points, cands)[0]
     out = torch.zeros((cands.shape[0],), dtype=torch.float32,
                       device=points.device)
-    return out.index_add_(0, labels.long(), weights)
+    out.index_add_(0, labels.long(), weights)
+    return out if grp is None else comm.all_reduce(out, grp)
 
 
 def kmeans_parallel_init(points: torch.Tensor, k: int, *,
@@ -222,7 +258,9 @@ def kmeans_parallel_init(points: torch.Tensor, k: int, *,
                          spec=None,
                          draws: KMeansParallelDraws | None = None,
                          generator: torch.Generator | None = None,
-                         return_stats: bool = False):
+                         return_stats: bool = False, mesh=None,
+                         axis_names: tuple[str, ...] = ("data",),
+                         device=None):
     """k-means|| seeding (Bahmani et al.) -> ``(k, d)`` centroids, every one
     an input point (and, with ``return_stats``, a dict of the candidate
     count, rounds, ``ell`` and the potential of each sweep).
@@ -236,6 +274,14 @@ def kmeans_parallel_init(points: torch.Tensor, k: int, *,
     ``None`` on the kernels, it is the tuning cache's entry for the sweep's
     steady candidate tile (``tuning.lookup_init_spec``), else the module
     default.
+
+    With ``mesh`` each sweep and the weighting pass run on this rank's row
+    block over ``axis_names`` (``points``: the global tensor, every rank
+    the same, on any device; the block and the candidates move to
+    ``device``, default the points'): the potential and the candidate
+    masses are all-reduced, the drawn rows all-gathered, and the recluster
+    runs on every rank from the same draws, so every rank returns the same
+    seeds.
     """
     n = points.shape[0]
     if n < 1:
@@ -243,7 +289,7 @@ def kmeans_parallel_init(points: torch.Tensor, k: int, *,
     if backend not in INIT_BACKENDS:
         raise ValueError(f"unknown init sweep backend: {backend!r} "
                          f"(expected one of {INIT_BACKENDS})")
-    dev = points.device
+    dev = points.device if device is None else torch.device(device)
     ell = float(2 * k) if ell is None else float(ell)
     rounds = max(1, int(default_rounds(n, k) if rounds is None else rounds))
     w = (torch.ones((n,), dtype=torch.float32, device=dev) if weights is None
@@ -255,15 +301,26 @@ def kmeans_parallel_init(points: torch.Tensor, k: int, *,
                                        points.dtype, device=dev)
     if draws is None:
         draws = parallel_draws(n, k, rounds, generator, dev)
-    else:
-        draws = KMeansParallelDraws(
-            _as_draw(draws.first, (), dev),
-            _as_draw(draws.rounds, (rounds + 1, n), dev),
-            _as_draw(draws.recluster, (k,), dev))
+    shard = None
+    if mesh is not None:
+        sl = sharding.s1_point_spec(axis_names, None).slices(mesh, (n,))[0]
+        u = torch.as_tensor(draws.rounds)[:, sl]
+        shard = Shard(points[sl].to(dev).contiguous(), w[sl], sl.start,
+                      _as_draw(u, (rounds + 1, sl.stop - sl.start), dev),
+                      comm.group(mesh, axis_names))
+    draws = KMeansParallelDraws(
+        _as_draw(draws.first, (), dev),
+        draws.rounds if shard is not None
+        else _as_draw(draws.rounds, (rounds + 1, n), dev),
+        _as_draw(draws.recluster, (k,), dev))
     pool, _, trace = oversample(points, draws, ell=ell, weights=w,
-                                backend=backend, spec=spec)
-    cands = points[pool]
-    cweights = candidate_weights(points, cands, w, backend, spec)
+                                backend=backend, spec=spec, shard=shard)
+    cands = _rows(points, pool, dev)
+    if shard is None:
+        cweights = candidate_weights(points, cands, w, backend, spec)
+    else:
+        cweights = candidate_weights(shard.x, cands, shard.weights, backend,
+                                     spec, shard.grp)
     centroids = kmeans_plus_plus(cands, k, weights=cweights,
                                  uniforms=draws.recluster)
     if return_stats:
@@ -274,7 +331,9 @@ def kmeans_parallel_init(points: torch.Tensor, k: int, *,
 
 def resolve_init(points: torch.Tensor, k: int, method: str, *, weights=None,
                  backend: str = "kernel", spec=None, draws=None,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+                 generator: torch.Generator | None = None, mesh=None,
+                 axis_names: tuple[str, ...] = ("data",),
+                 device=None) -> torch.Tensor:
     """An init strategy name -> ``(k, d)`` centroids.
 
     ``draws`` are the method's own: ``(n,)`` uniforms for ``"sample"``,
@@ -282,15 +341,21 @@ def resolve_init(points: torch.Tensor, k: int, method: str, *, weights=None,
     ``"kmeans||"``; without them the method draws from ``generator``.
     ``backend`` selects the k-means|| implementation (``"kernel"`` |
     ``"plain"``) and ``spec`` its kernels' ``KernelSpec``; ``weights``
-    weight ``"kmeans++"`` and ``"kmeans||"``.
+    weight ``"kmeans++"`` and ``"kmeans||"``.  With ``mesh``,
+    ``"kmeans||"`` runs sharded over ``axis_names`` and the others on the
+    whole of ``points`` moved to ``device``, as the reference leaves them.
     """
     if method not in INIT_METHODS or method == "given":
         raise ValueError(f"unknown init method: {method!r} "
                          f"(expected one of {INIT_METHODS[1:]})")
+    if method == "kmeans||":
+        return kmeans_parallel_init(points, k, weights=weights,
+                                    backend=backend, spec=spec, draws=draws,
+                                    generator=generator, mesh=mesh,
+                                    axis_names=axis_names, device=device)
+    if device is not None:
+        points = points.to(device)
     if method == "sample":
         return sample_init(points, k, uniforms=draws, generator=generator)
-    if method == "kmeans++":
-        return kmeans_plus_plus(points, k, weights=weights, uniforms=draws,
-                                generator=generator)
-    return kmeans_parallel_init(points, k, weights=weights, backend=backend,
-                                spec=spec, draws=draws, generator=generator)
+    return kmeans_plus_plus(points, k, weights=weights, uniforms=draws,
+                            generator=generator)

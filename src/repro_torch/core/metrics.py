@@ -47,6 +47,15 @@ def sse(points: torch.Tensor, centroids: torch.Tensor,
         chunk_rows: int = SSE_CHUNK_ROWS) -> torch.Tensor:
     """Sum of squared errors of each point to its nearest centroid, summed
     in float32 and returned in the inputs' promoted dtype."""
+    return sse_f32(points, centroids, mask, chunk_rows).to(
+        torch.promote_types(points.dtype, centroids.dtype))
+
+
+def sse_f32(points: torch.Tensor, centroids: torch.Tensor,
+            mask: torch.Tensor | None = None,
+            chunk_rows: int = SSE_CHUNK_ROWS) -> torch.Tensor:
+    """``sse`` before its last rounding: the float32 sum (a block's share
+    of a sharded SSE, all-reduced before the rounding)."""
     total = torch.zeros((), dtype=torch.float32, device=points.device)
     for lo in range(0, points.shape[0], chunk_rows):
         m = torch.min(pairwise_sq_dists(points[lo:lo + chunk_rows],
@@ -54,7 +63,7 @@ def sse(points: torch.Tensor, centroids: torch.Tensor,
         if mask is not None:
             m = torch.where(mask[lo:lo + chunk_rows], m, 0.0)
         total = total + torch.sum(m.float())
-    return total.to(torch.promote_types(points.dtype, centroids.dtype))
+    return total
 
 
 def asse(points: torch.Tensor, centroids: torch.Tensor,

@@ -189,17 +189,18 @@ class LloydEngine:
         skip, and the exact loop IS the pruned result.
         """
         check_prune(prune)
-        c, iters, shift = self.lloyd_loop(
+        c, iters, conv = self.lloyd_loop(
             subsets, init_centroids, weights, max_iters=max_iters, tol=tol,
             reseed_empty=reseed_empty)
         return (c.to(init_centroids.dtype), self.sse(subsets, c, weights),
-                iters, shift <= tol)
+                iters, conv)
 
     def lloyd_loop(self, subsets, init_centroids, weights=None, *,
-                   max_iters: int, tol: float, reseed_empty: bool = False):
+                   max_iters: int, tol: float, reseed_empty: bool = False,
+                   reduce=None):
         """Lloyd trips of ``step`` to convergence: (M,S,d),(k,d) or
-        (M,k,d)[,(M,S)] -> (centroids (M,k,d), iters (M,) i32, last shift
-        (M,)).
+        (M,k,d)[,(M,S)] -> (centroids (M,k,d), iters (M,) i32, converged
+        (M,) bool).
 
         The reference vmaps a ``lax.while_loop``; a lane there keeps its
         state once ``not (it < max_iters and shift > tol)``.  Here each trip
@@ -215,6 +216,14 @@ class LloydEngine:
         picks are rounded to the seeds' dtype (the carry dtype) before the
         shift, as the reference's loop casts them back to it; bfloat16
         points are widened once, exactly.
+
+        ``reduce(sums, counts, sel) -> (sums, counts, stop)`` turns each
+        trip's statistics of the active lanes ``sel`` (int64) into the ones
+        the divide sees, and gives the active lanes' stop threshold from
+        then on (``None``: ``tol``).  The distributed solvers pass it: the
+        all-reduce over the ranks of ``pkmeans_sharded``, and the exact or
+        int8 error-feedback reduction over the pods of the cross-pod S2,
+        whose threshold widens to the quantization's noise floor.
         """
         from repro_torch.core.metrics import centroid_shift
         m = subsets.shape[0]
@@ -227,13 +236,18 @@ class LloydEngine:
         c.copy_(init_centroids)
         iters = torch.zeros(m, dtype=torch.int32, device=dev)
         shift = torch.full((m,), torch.inf, dtype=torch.float32, device=dev)
+        stop = torch.full((m,), tol, dtype=torch.float32, device=dev)
         while True:
-            active = (iters < max_iters) & (shift > tol)
+            active = (iters < max_iters) & (shift > stop)
             lanes = torch.nonzero(active).flatten().to(torch.int32)
             if lanes.numel() == 0:
                 break
             sel = lanes.long()
             sums, counts, _ = self.step(subsets, c, weights, lanes)
+            if reduce is not None:
+                sums, counts, lane_stop = reduce(sums, counts, sel)
+                if lane_stop is not None:
+                    stop[sel] = lane_stop
             old = c[sel]
             c[sel] = ref.divide_or_keep(sums, counts, old).to(carry).float()
             if reseed_empty:
@@ -241,7 +255,7 @@ class LloydEngine:
                                       lanes, carry)
             shift[sel] = centroid_shift(c[sel], old)
             iters[sel] += 1
-        return c, iters, shift
+        return c, iters, shift <= stop
 
 
 class EagerEngine(LloydEngine):

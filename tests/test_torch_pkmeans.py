@@ -76,8 +76,10 @@ def test_pkmeans_leaves_the_seeds_alone_and_stops_at_max_iters():
                   device="cpu")
     assert int(got.iters) == 2 and not bool(got.converged)
     assert torch.equal(seeds, torch.from_numpy(init))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pkmeans_sharded(None, ("data",))
+    # the sharded solve is ported (tests/test_torch_distributed.py); it
+    # refuses reseed_empty as the reference does, before it needs a mesh
+    with pytest.raises(NotImplementedError, match="reseed_empty"):
+        pkmeans_sharded(None, ("data",), KMeansParams(reseed_empty=True))
 
 
 @pytest.mark.parametrize("backend", ENGINES)
