@@ -20,7 +20,9 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      R = 1, 2, 4, 8 blocks a lane (and 16 where the card takes it), every R
      bit-identical to R = 1; bounds bit-identical to exact, one batched
      launch bit-identical to one resident launch per lane, a repeat launch
-     bit-identical;
+     bit-identical; then each stack from one seed block a lane (``(M, k,
+     d)`` seeds), against the plain version and one resident solve a lane
+     from its own seeds;
   4. [small]: the whole pipeline on a small input, card against CPU;
   5. [main]: the main path at full size (n = 2**23, d = 64, K = 1024,
      M = 512), on ``backend="fused"`` (the first slice's path) and on
@@ -50,6 +52,18 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      their bound;
   6. [resident]: one full-width solve through ``kmeans(...,
      backend="resident")``, its R, beside the fused engine's solve;
+  6a. [recover]: ``ipkmeans_recoverable`` at [main]'s size and
+     configuration on ``batched``, 4 workers of 128 lanes, 2 iterations a
+     round, a snapshot every 2 rounds: crash-free, and with the worker of
+     the longest-running stack crashed at round 3; each with the counts set
+     to 0 just before and read just after (one whole-solve launch a stack a
+     round on its unconverged lanes, one fused launch for the lane SSEs),
+     each bit for bit [main]'s batched run, and only the crashed stack
+     advanced more often; rounds, launches, lane-rounds recomputed, and the
+     S2 time beside [main]'s;
+  6b. [ckpt]: an ``AsyncCheckpointer`` round trip of [main]'s batched
+     centroids on the card in float32 and bfloat16, restored to the card
+     bit for bit;
   7. [assign] (run before [main]): the assign kernel against its plain
      version on one large ragged lane (n = 2**20, k = 4100) and a ragged
      8-lane stack with an exact tie and an empty cluster, bit for bit the
@@ -276,6 +290,19 @@ SERVE_REFRESH_EVERY = 256
 SERVE_REFRESH_ROWS = 1 << 16
 SERVE_DRIFT = 0.25
 SERVE_COALESCE = 64
+# [recover]: ipkmeans_recoverable at [main]'s size and configuration on
+# ``batched``: RECOVER_WORKERS workers (a stack of M / RECOVER_WORKERS lanes
+# each), RECOVER_ITERS Lloyd iterations a round, a snapshot every
+# RECOVER_SNAPSHOT rounds.  The crash run silences, at round
+# RECOVER_CRASH_ROUND, the worker whose stack runs longest: one round past
+# the round-1 snapshot, so the round it advanced since is lost and redone.
+# Its lane SSEs come from one fused pass, [main]'s from the whole-solve
+# kernel's final pass: bit for bit, or within RECOVER_SSE_RTOL (printed).
+RECOVER_WORKERS = 4
+RECOVER_ITERS = 2
+RECOVER_SNAPSHOT = 2
+RECOVER_CRASH_ROUND = 3
+RECOVER_SSE_RTOL = 1e-6
 
 
 def fail(msg: str) -> int:
@@ -715,6 +742,43 @@ def phase_solve(torch, solve_report: dict) -> bool:
                     print(f"[solve] FAIL bit-identical across R: {across}",
                           flush=True)
                     return False
+    # one seed block a lane (each a different cut of the data, duplicates
+    # kept so that reseed fires): against the plain version, one resident
+    # solve a lane from its own seeds, and R = 1; the shared seeds given to
+    # every lane are the shared launch bit for bit
+    for tag, x, c, w in solve_stacks(torch, dev):
+        m, k = x.shape[0], c.shape[0]
+        seeds = torch.stack([x[(i + 1) % m, 7 * i:7 * i + k]
+                             for i in range(m)])
+        seeds[:, 7] = seeds[:, 3]
+        seeds = seeds.contiguous()
+        every = c.expand(m, *c.shape).contiguous()
+        for prune in ("none", "bounds"):
+            kw = dict(max_iters=MAX_ITERS, tol=TOL, reseed_empty=True,
+                      prune=prune)
+            name = f"{tag} per-lane seeds prune={prune}"
+            got = solve_batched(x, seeds, w, **kw)
+            plain = br.lloyd_solve_plain(x, seeds, w, **kw)
+            torch.cuda.synchronize()
+            ok, err = compare_solve(name, got, plain, torch)
+            worst = max(worst, err)
+            lanes = [resident.lloyd_solve_resident(x[i], seeds[i], w[i], **kw)
+                     for i in range(m)]
+            per_lane = identical(got[:4],
+                                 [torch.stack(p) for p in zip(*lanes)])
+            r_one = identical(solve_batched(x, seeds, w, cluster=1, **kw),
+                              got)
+            shared = identical(solve_batched(x, every, w, **kw),
+                               solve_batched(x, c, w, **kw))
+            differ = not identical(got[:4], solve_batched(x, c, w, **kw)[:4])
+            print(f"[solve] {name}: == resident per lane from its own seeds "
+                  f"{per_lane}, R = 1 bit-identical {r_one}, shared seeds "
+                  f"as (M, k, d) == shared launch {shared}, differs from the "
+                  f"shared seeds' solve {differ}, iters "
+                  f"{got.iters.tolist()}", flush=True)
+            if not (ok and per_lane and r_one and shared and differ):
+                print("[solve] FAIL per-lane seeds", flush=True)
+                return False
     solve_report["max_abs_err"] = worst
     return True
 
@@ -1103,6 +1167,177 @@ def phase_resident(torch, report: dict, main: dict) -> bool:
     return ok and counts == counts_of(lloyd_solve_resident=1) and bool(
         torch.equal(res.iters.reshape(1), got.iters)) and int(
         res_f.iters) == int(res.iters)
+
+
+def recover_run(torch, main: dict, fail_at):
+    """One ``ipkmeans_recoverable`` call at [main]'s size on ``batched``,
+    the counts set to 0 just before and read just after; the lanes of each
+    whole-solve call and the S2 wall time (the recovery loop, the card
+    synchronised at both ends) are recorded by wrappers that only watch."""
+    from repro_torch.core import ipkmeans_recoverable
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels import engine
+    lanes, s2 = [], {}
+    solve = engine.BatchedEngine.solve_batched
+    loop = runtime.solve_stacks_with_recovery
+
+    def counted(self, subsets, *args, **kw):
+        lanes.append(int(subsets.shape[0]))
+        return solve(self, subsets, *args, **kw)
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loop(*args, **kw)
+        torch.cuda.synchronize()
+        s2["s"] = time.perf_counter() - t0
+        return out
+
+    with mock.patch.object(engine.BatchedEngine, "solve_batched", counted), \
+            mock.patch.object(runtime, "solve_stacks_with_recovery", timed):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res, log, work = ipkmeans_recoverable(
+            main["x"], main["init"], main["config"]("batched"),
+            num_workers=RECOVER_WORKERS, iters_per_round=RECOVER_ITERS,
+            snapshot_every=RECOVER_SNAPSHOT, fail_at=fail_at,
+            device=main["x"].device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+    by_stack = [sum(1 for *_, st in work if st == s)
+                for s in range(RECOVER_WORKERS)]
+    return dict(res=res, log=log, work=work, secs=secs, counts=counts,
+                s2=s2["s"], lanes=lanes, by_stack=by_stack,
+                rounds=1 + max(rnd for rnd, _, _ in work))
+
+
+def phase_recover(torch, solve_report: dict, fused_report: dict,
+                  main: dict) -> bool:
+    """[recover]: IPKMeans with S2 under the fault-tolerance runtime at
+    [main]'s size, crash-free and with one crash: each bit for bit [main]'s
+    ``batched`` run (centroids, intermediate centroids, iterations; the
+    lane and total SSEs bit for bit or within RECOVER_SSE_RTOL), one
+    whole-solve launch a stack a round on its unconverged lanes and one
+    fused launch for the lane SSEs, and only the crashed stack advanced
+    more often than in the crash-free run."""
+    res_b = main["res_b"]
+    per = M // RECOVER_WORKERS
+    stack_max = res_b.subset_iters.view(RECOVER_WORKERS, per).amax(dim=1)
+    victim = int(torch.argmax(stack_max))
+    if int(stack_max[victim]) <= RECOVER_ITERS * RECOVER_CRASH_ROUND:
+        print(f"[recover] FAIL no stack is unconverged at round "
+              f"{RECOVER_CRASH_ROUND} (stacks' largest iterations "
+              f"{stack_max.tolist()})", flush=True)
+        return False
+    runs = {"crash-free": recover_run(torch, main, None),
+            "one crash": recover_run(torch, main,
+                                     {RECOVER_CRASH_ROUND: victim})}
+    ok = True
+    for tag, run in runs.items():
+        res = run["res"]
+        bits = {f: torch.equal(getattr(res, f), getattr(res_b, f))
+                for f in ("centroids", "intermediate", "subset_iters",
+                          "asses", "sse")}
+        rel = {f: float(torch.max(torch.abs(getattr(res, f).double()
+                                            - getattr(res_b, f).double())
+                                  / torch.clamp(torch.abs(
+                                      getattr(res_b, f).double()),
+                                      min=1e-30)))
+               for f in ("asses", "sse")}
+        want_counts = counts_of(lloyd_solve_batched=len(run["work"]),
+                                fused_lloyd=1)
+        good = (bits["centroids"] and bits["intermediate"]
+                and bits["subset_iters"]
+                and all(v <= RECOVER_SSE_RTOL for v in rel.values())
+                and run["counts"] == want_counts
+                and len(run["lanes"]) == len(run["work"]))
+        print(f"[recover] {tag}: {RECOVER_WORKERS} workers x {per} lanes, "
+              f"{RECOVER_ITERS} iterations a round, a snapshot every "
+              f"{RECOVER_SNAPSHOT} rounds: {run['secs']:.3f} s, S2 "
+              f"{run['s2']:.3f} s ([main]'s batched S2 "
+              f"{main['stages_b'][1]:.3f} s, one whole-solve launch); "
+              f"{run['rounds']} rounds, {len(run['work'])} whole-solve "
+              f"launches (stacks x rounds, active lanes only: "
+              f"{sum(run['lanes'])} lane-rounds, by launch {run['lanes']}), "
+              f"advances by stack {run['by_stack']}; launches "
+              f"{run['counts']}; bit for bit [main]'s batched run: {bits}; "
+              f"largest relative difference of the lane SSEs "
+              f"{rel['asses']:.3g} and the SSE {rel['sse']:.3g} (rtol "
+              f"{RECOVER_SSE_RTOL})", flush=True)
+        ok = ok and good
+    free, crash = runs["crash-free"], runs["one crash"]
+    rec = [e for e in crash["log"] if e[0] == "recover"]
+    others = [s for s in range(RECOVER_WORKERS) if s != victim]
+    only = (bool(rec) and rec[0][2] == (victim,)
+            and crash["by_stack"][victim] > free["by_stack"][victim]
+            and all(crash["by_stack"][s] == free["by_stack"][s]
+                    for s in others))
+    redone = sum(crash["lanes"]) - sum(free["lanes"])
+    print(f"[recover] crash of worker {victim} (its stack's lanes take up to "
+          f"{int(stack_max[victim])} iterations) at round "
+          f"{RECOVER_CRASH_ROUND}: {rec[0] if rec else 'no recovery'}; its "
+          f"stack advanced {crash['by_stack'][victim]} times against "
+          f"{free['by_stack'][victim]}, the others as often as crash-free: "
+          f"{only}; recomputed {redone} lane-rounds "
+          f"({crash['by_stack'][victim] - free['by_stack'][victim]} "
+          f"launches); S2 {crash['s2']:.3f} s against {free['s2']:.3f} s "
+          f"crash-free; {nvidia_smi_line()}", flush=True)
+    solve_report.setdefault("launches_by_path", {}).update({
+        "recover crash-free": free["counts"]["lloyd_solve_batched"],
+        "recover one crash": crash["counts"]["lloyd_solve_batched"]})
+    fused_report.setdefault("launches_by_path", {})[
+        "recover lane SSEs"] = free["counts"]["fused_lloyd"]
+    print(json.dumps({"recover": {
+        tag: dict(secs=r["secs"], s2_s=r["s2"], rounds=r["rounds"],
+                  launches=len(r["work"]), lane_rounds=sum(r["lanes"]),
+                  by_stack=r["by_stack"])
+        for tag, r in runs.items()} | {
+            "main_s2_s": main["stages_b"][1], "victim": victim,
+            "recomputed_lane_rounds": redone}}), flush=True)
+    if not (ok and only and redone > 0):
+        print("[recover] FAIL", flush=True)
+        return False
+    return True
+
+
+def phase_ckpt(torch, main: dict) -> bool:
+    """[ckpt]: an ``AsyncCheckpointer`` round trip of [main]'s batched
+    centroids on the card, float32 and bfloat16, restored to the card bit
+    for bit."""
+    import tempfile
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_latest
+    res = main["res_b"]
+    tree = {"intermediate": res.intermediate, "final": res.centroids,
+            "bf16": [res.intermediate.to(torch.bfloat16),
+                     res.centroids.to(torch.bfloat16)],
+            "iters": res.subset_iters}
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        tree["intermediate"], tree["final"], *tree["bf16"], tree["iters"]))
+    with tempfile.TemporaryDirectory() as d:
+        ck = AsyncCheckpointer(d, keep=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1, tree)
+        t_copy = time.perf_counter() - t0
+        ck.wait()
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step, got = restore_latest(d, tree)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    pairs = [(got["intermediate"], tree["intermediate"]),
+             (got["final"], tree["final"]), (got["iters"], tree["iters"]),
+             *zip(got["bf16"], tree["bf16"])]
+    ok = step == 1 and all(
+        a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in pairs)
+    print(f"[ckpt] AsyncCheckpointer: {nbytes / 1e6:.1f} MB of [main]'s "
+          f"batched centroids (f32 and bf16) and iterations: host copy "
+          f"{t_copy:.3f} s, written {t_save:.3f} s, restored to the card "
+          f"{t_load:.3f} s; bit for bit on the card: {ok}", flush=True)
+    return ok
 
 
 def serve_rows(torch, gen, centers, n: int, drift: float = 0.0):
@@ -3250,6 +3485,10 @@ def main() -> int:
         return fail("serving tier")
     if not phase_resident(torch, res_rep, main_run):
         return fail("resident solve")
+    if not phase_recover(torch, batched, report, main_run):
+        return fail("recoverable IPKMeans")
+    if not phase_ckpt(torch, main_run):
+        return fail("checkpoint round trip")
     if not phase_update(torch, update_rep, main_run, big):
         return fail("centroid-update kernel against its plain version")
     del big

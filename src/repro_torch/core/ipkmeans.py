@@ -20,6 +20,11 @@ needs a mesh, so the single-process ``ipkmeans`` warns and scatters, as the
 reference's does), ``merge`` ``"min_asse"`` | ``"hierarchical"``, ``reduce``
 ``"exact"`` | ``"int8ef"`` (the pod path's), and every ``init``.
 
+``ipkmeans_recoverable`` runs S2 under the fault-tolerance runtime
+(``distributed/runtime.py``): workers own stacks of subsets, advance them a
+few Lloyd iterations a round, commit snapshots, and a crashed worker's
+stack alone re-solves from its last snapshot.
+
 ``ipkmeans_distributed`` runs the pipeline on a mesh of ranks
 (``distributed/``), each rank one process: S2 with the subsets in blocks
 over the mesh and NO collective inside the loops (the paper's "one
@@ -38,10 +43,11 @@ import torch
 
 from repro_torch.core import kdtree, merge, metrics
 from repro_torch.core.init import INIT_METHODS, resolve_init
-from repro_torch.core.kmeans import (KMeansParams, KMeansResult, _init_backend,
-                                     check_params, kmeans_batched)
-from repro_torch.device import as_float, resolve_device
-from repro_torch.distributed import comm, compress, sharding
+from repro_torch.core.kmeans import (KMeansParams, KMeansResult, _asse,
+                                     _init_backend, check_params,
+                                     kmeans_batched)
+from repro_torch.device import as_float, as_weights, resolve_device
+from repro_torch.distributed import comm, compress, runtime, sharding
 from repro_torch.kernels import engine as engines
 
 REDUCE_MODES = ("exact", "int8ef")
@@ -256,6 +262,109 @@ def ipkmeans(points, init_centroids, cfg: IPKMeansConfig, *, draws=None,
     return IPKMeansResult(centroids=final, sse=total_sse,
                           intermediate=res.centroids, asses=res.asse,
                           subset_iters=res.iters, kd_depth=part.depth)
+
+
+def ipkmeans_recoverable(points, init_centroids, cfg: IPKMeansConfig, *,
+                         num_workers: int, iters_per_round: int = 4,
+                         snapshot_every: int = 2, max_rounds: int = 200,
+                         fail_at: dict | None = None,
+                         rejoin_at: dict | None = None, ft=None, draws=None,
+                         partition_draws=None,
+                         generator: torch.Generator | None = None,
+                         device=None):
+    """IPKMeans with S2 driven under the heartbeat-recovery protocol of
+    ``distributed/runtime.py``.
+
+    ``num_workers`` workers own disjoint reducer stacks (contiguous slices
+    of the M subsets; ``num_subsets`` must be a multiple of
+    ``num_workers``).  Each round advances every unconverged subset of a
+    stack by at most ``iters_per_round`` Lloyd iterations, in ONE
+    ``engine.solve_batched`` launch a stack from the lanes' own centroids
+    (Lloyd is Markov in the centroids, so the chunked advance replays the
+    unchunked iteration sequence exactly), and per-stack centroid snapshots
+    commit every ``snapshot_every`` rounds.  A worker that misses its
+    heartbeat (``fail_at`` injects crashes as ``{round: worker_id}``) is
+    evicted once ``ft.heartbeat_timeout`` has elapsed and ONLY its stack
+    re-solves, from its last snapshot; ``rejoin_at`` lets it join again.
+
+    As in the reference: the state between rounds is float32 (bfloat16
+    seeds run the rounds with a float32 carry), a subset's iterations are
+    capped by ``max_rounds * iters_per_round`` and not by
+    ``cfg.kmeans.max_iters``, and ``ft`` defaults to
+    ``FTConfig(heartbeat_timeout=2.5, min_workers=1)``.  The lane SSEs come
+    from one ``engine.sse`` over the whole stack at the final centroids.
+    Seeding and S1 take ``draws``, ``partition_draws`` and ``generator`` as
+    ``ipkmeans`` does; runs on ``device`` (default: CUDA, raising without a
+    card).
+
+    Returns ``(IPKMeansResult, event log, work)``: the result is
+    ``ipkmeans``'s on the same inputs; ``log`` and ``work`` come from
+    :func:`repro_torch.distributed.runtime.solve_stacks_with_recovery`.
+    """
+    if ft is None:
+        ft = runtime.FTConfig(heartbeat_timeout=2.5, min_workers=1)
+    check_config(cfg)
+    if cfg.num_subsets % num_workers:
+        raise ValueError(f"num_subsets={cfg.num_subsets} not divisible by "
+                         f"num_workers={num_workers}")
+    dev = resolve_device(device)
+    x = as_float(points, dev)
+    init_centroids, cfg = _resolve_init_stage(x, init_centroids, cfg, draws,
+                                              generator)
+    init_centroids = as_float(init_centroids, dev)
+    part, subsets, masks = _partition_and_pack(
+        x, cfg, draws=partition_draws, generator=generator)
+    w = as_weights(masks, dev)
+    params = cfg.kmeans
+    engine = engines.get_engine(params.backend)
+    per = cfg.num_subsets // num_workers
+    k, d = init_centroids.shape
+
+    def advance(stack_id, state):
+        """Advance one stack by <= iters_per_round iterations a lane.  The
+        reference solves every lane and keeps the converged lanes' old state
+        (``where(conv, ...)``); solving only the unconverged lanes and
+        scattering their results back gives the same state, since a lane's
+        solve does not depend on the other lanes of its launch."""
+        cents, iters, conv = state
+        act = torch.nonzero(~conv).flatten()
+        lo = stack_id * per
+        if act.numel() == per:
+            sub, wl, c0 = subsets[lo:lo + per], w[lo:lo + per], cents
+        else:
+            rows = act + lo
+            sub, wl, c0 = subsets[rows], w[rows], cents[act]
+        new_c, _, it, cv = engine.solve_batched(
+            sub, c0, wl, max_iters=iters_per_round, tol=params.tol,
+            reseed_empty=params.reseed_empty, prune=params.prune)
+        # new tensors: a committed snapshot holds the old ones
+        cents, iters, conv = cents.clone(), iters.clone(), conv.clone()
+        cents[act] = new_c.float()
+        iters[act] += it
+        conv[act] = cv
+        return (cents, iters, conv), bool(torch.all(conv))
+
+    c0 = init_centroids.float().expand(per, k, d).contiguous()
+    init_states = [(c0, torch.zeros(per, dtype=torch.int32, device=dev),
+                    torch.zeros(per, dtype=torch.bool, device=dev))
+                   for _ in range(num_workers)]
+    states, log, work = runtime.solve_stacks_with_recovery(
+        advance, init_states, num_workers=num_workers,
+        max_rounds=max_rounds, snapshot_every=snapshot_every,
+        fail_at=fail_at, rejoin_at=rejoin_at, cfg=ft)
+
+    cents = torch.cat([st[0] for st in states])
+    iters = torch.cat([st[1] for st in states])
+    conv = torch.cat([st[2] for st in states])
+    sse_m = engine.sse(subsets, cents, w)
+    res = KMeansResult(centroids=cents.to(init_centroids.dtype), sse=sse_m,
+                       asse=_asse(sse_m, torch.sum(w, dim=1)), iters=iters,
+                       converged=conv)
+    final, total_sse = _merge_stage(x, res, cfg)
+    return (IPKMeansResult(centroids=final, sse=total_sse,
+                           intermediate=res.centroids, asses=res.asse,
+                           subset_iters=res.iters, kd_depth=part.depth),
+            log, work)
 
 
 # ------------------------------------------------------------ on a mesh ---

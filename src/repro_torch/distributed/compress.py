@@ -20,7 +20,7 @@ the CPU, where the tests hold the two): the scale is ``amax * f32(1/127)``
 (XLA's form of the division by 127), ``torch.round`` rounds half to even as
 ``jnp.round`` does, and the two sums XLA fuses with a product, the residual
 ``(g + r) - q * scale`` and the dequantize-sum over ranks, round once, as a
-fused multiply-add does (``_fma``).
+fused multiply-add does (``ref.fma_f32``).
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.distributed import comm
+from repro_torch.kernels.ref import fma_f32
 
 
 # 1 / 127 rounded to float32 (0.00787401572)
@@ -86,13 +87,6 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` in float32 with one rounding: the product of two f32
-    values is exact in float64, so only the sum rounds (to float64, then to
-    float32; the two roundings part from one in about 2**-29 of cases)."""
-    return torch.addcmul(c.double(), a.double(), b.double()).float()
-
-
 def compress_tree(tree, state: EFState, axes=None):
     """EF-quantize a tree -> ``((int8, scale) payload tree, new EFState)``.
     The residual (what int8 could not hold) stays and is added back next
@@ -104,7 +98,7 @@ def compress_tree(tree, state: EFState, axes=None):
     else:
         payload = _map(lambda g, r, a: quantize_int8(g.float() + r, axis=a),
                        tree, state.residual, axes)
-    residual = _map(lambda g, r, p: _fma(-p[0].float(), p[1],
+    residual = _map(lambda g, r, p: fma_f32(-p[0].float(), p[1],
                                          g.float() + r),
                     tree, state.residual, payload)
     return payload, EFState(residual=residual)
@@ -149,7 +143,7 @@ def ef_allreduce(tree, state: EFState, grp=None, axes=None,
         acc = dequantize_int8(qg[0], sg[0])
         half = sg[0]
         for r in range(1, qg.shape[0]):
-            acc = _fma(qg[r].float(), sg[r], acc)
+            acc = fma_f32(qg[r].float(), sg[r], acc)
             half = half + sg[r]
         red.append(acc)
         err.append(0.5 * half)

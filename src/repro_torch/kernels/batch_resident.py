@@ -20,6 +20,11 @@ stack's size and what the card reports, and ``solve_stack(...,
 cluster=R)`` forces it (the card's tests and ``chip_smoke.py`` do, to hold
 every R against R = 1).
 
+The seeds are one ``(k, d)`` block every lane starts from, or ``(M, k,
+d)``, one block a lane (the kernel reads lane ``g``'s at ``c0 + g * k * d``;
+the shared block is the stride 0): a lane's result is the same bits either
+way, given the same seeds.
+
 On a CUDA tensor :func:`lloyd_solve_batched` launches the kernel (built at
 first use) or raises; on a CPU tensor it runs :func:`lloyd_solve_plain`,
 the same function in plain PyTorch.  Nothing is padded: the kernel masks the
@@ -168,11 +173,11 @@ def _solve_plain_chunk(x, c0, w, *, max_iters, tol, reseed_empty, bb, nb,
     the ``carry`` dtype."""
     from repro_torch.core.metrics import centroid_shift
     m, s, _ = x.shape
-    k = c0.shape[0]
+    k = c0.shape[-2]
     kk = min(k, s)
     dev = x.device
     x2 = torch.sum(x * x, dim=-1)
-    c = c0.expand(m, *c0.shape).clone()
+    c = c0.expand(m, k, c0.shape[-1]).clone()
     it = torch.zeros(m, dtype=torch.int32, device=dev)
     passes = torch.zeros(m, dtype=torch.int32, device=dev)
     shift = torch.full((m,), torch.inf, dtype=torch.float32, device=dev)
@@ -241,7 +246,7 @@ def lloyd_solve_plain(subsets, centroids, weights=None, *,
     the seeds' dtype, the carry dtype of every trip."""
     check_prune(prune)
     m, s, _ = subsets.shape
-    k = centroids.shape[0]
+    k = centroids.shape[-2]
     bb, nb = _bound_blocks(s, prune, bound_block)
     x = subsets.float()
     c0 = centroids.float()
@@ -251,7 +256,10 @@ def lloyd_solve_plain(subsets, centroids, weights=None, *,
                         device=x.device)
     step = max(1, ref.PLAIN_SCORE_ELEMS // max(1, s * k))
     carry = centroids.dtype
-    parts = [_solve_plain_chunk(x[lo:lo + step], c0, w[lo:lo + step],
+    # per-lane seeds are cut with their lanes
+    parts = [_solve_plain_chunk(x[lo:lo + step],
+                                c0 if c0.dim() == 2 else c0[lo:lo + step],
+                                w[lo:lo + step],
                                 max_iters=max_iters, tol=tol,
                                 reseed_empty=reseed_empty, bb=bb, nb=nb,
                                 skips=skips, carry=carry)
@@ -278,7 +286,8 @@ def _kernel():
         lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.lloyd_solve
-        fn.argtypes = ([p, p, p, i, i, i, i, i, ctypes.c_float]
+        fn.argtypes = ([p, p, ctypes.c_longlong, p, i, i, i, i, i,
+                        ctypes.c_float]
                        + [i] * 4 + [p, i] + [p] * 15)
         fn.restype = ctypes.c_int
         cl = lib.lloyd_solve_clusters
@@ -342,7 +351,9 @@ def _launch(x, c0, w, *, max_iters, tol, reseed_empty, prune, bound_block,
             count_as, cluster) -> SolveOut:
     global launches
     m, s, d = x.shape
-    k = c0.shape[0]
+    k = c0.shape[-2]
+    # lane g's seeds at c0 + g * stride: 0 shares one (k, d) block
+    stride = k * d if c0.dim() == 3 else 0
     dev = x.device
     if not all(t.is_contiguous() for t in (x, c0, w)):
         raise ValueError("the whole-solve kernel takes contiguous tensors")
@@ -379,8 +390,8 @@ def _launch(x, c0, w, *, max_iters, tol, reseed_empty, prune, bound_block,
     rows = (ctypes.c_int * len(plan.rows))(*plan.rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(x), ptr(c0), ptr(w), m, s, d, k, int(max_iters),
-                 float(tol), int(bool(reseed_empty)), bb, nb,
+        err = fn(ptr(x), ptr(c0), stride, ptr(w), m, s, d, k,
+                 int(max_iters), float(tol), int(bool(reseed_empty)), bb, nb,
                  int(carry_bf16), ctypes.addressof(rows), plan.r,
                  ptr(c), ptr(labels), ptr(mind), ptr(gap), ptr(order),
                  ptr(sums), ptr(counts), ptr(margin), ptr(dacc), ptr(sse),
@@ -397,11 +408,13 @@ def _launch(x, c0, w, *, max_iters, tol, reseed_empty, prune, bound_block,
 
 
 def _check(x, c0, w):
-    if x.dim() != 3 or c0.dim() != 2:
-        raise ValueError(f"expected subsets (M,S,d) and centroids (k,d), "
-                         f"got {tuple(x.shape)} and {tuple(c0.shape)}")
+    if x.dim() != 3 or c0.dim() not in (2, 3):
+        raise ValueError(f"expected subsets (M,S,d) and centroids (k,d) or "
+                         f"(M,k,d), got {tuple(x.shape)} and "
+                         f"{tuple(c0.shape)}")
     m, s, d = x.shape
-    if c0.shape[1] != d or c0.shape[0] < 1:
+    if (c0.shape[-1] != d or c0.shape[-2] < 1
+            or (c0.dim() == 3 and c0.shape[0] != m)):
         raise ValueError(f"centroids {tuple(c0.shape)} do not fit subsets "
                          f"{tuple(x.shape)}")
     if w is not None and tuple(w.shape) != (m, s):
@@ -421,17 +434,18 @@ def solve_stack(subsets, centroids, weights=None, *, max_iters: int = 300,
                 prune: str = "none", bound_block: int | None = None,
                 count_as: str = "batched",
                 cluster: int | None = None) -> SolveOut:
-    """The kernel's function on a stack: the plain version for a CPU tensor,
-    the kernel for a CUDA tensor (which raises when it cannot build or
-    launch).  Both refuse a ``k`` beyond one block's shared memory.  A
-    launch adds one to the counter of the wrapper named by ``count_as``:
-    this module's ``launches`` (``"batched"``) or ``resident.launches``
-    (``"resident"``); an empty stack launches nothing.  ``cluster`` forces
-    the blocks a lane's cluster has (default: :func:`cluster_plan`'s rule);
+    """The kernel's function on a stack, from shared ``(k,d)`` or per-lane
+    ``(M,k,d)`` seeds: the plain version for a CPU tensor, the kernel for a
+    CUDA tensor (which raises when it cannot build or launch).  Both
+    refuse a ``k`` beyond one block's shared memory.  A launch adds one to
+    the counter of the wrapper named by ``count_as``: this module's
+    ``launches`` (``"batched"``) or ``resident.launches`` (``"resident"``);
+    an empty stack launches nothing.  ``cluster`` forces the blocks a
+    lane's cluster has (default: :func:`cluster_plan`'s rule);
     it changes no bit of the result."""
     check_prune(prune)
     _check(subsets, centroids, weights)
-    s, k = subsets.shape[1], centroids.shape[0]
+    s, k = subsets.shape[1], centroids.shape[-2]
     if not batched_feasible(s, subsets.shape[2], k, prune, bound_block,
                             subsets.device):
         raise ValueError(f"k={k} clusters (S={s}, prune={prune!r}) exceed "
@@ -460,14 +474,15 @@ def lloyd_solve_batched(subsets, centroids, weights=None, *,
                         bound_block: int | None = None,
                         return_skips: bool = False):
     """A whole stack of Lloyd solves in one launch: ``subsets (M,S,d)``,
-    the shared seeds ``centroids (k,d)``, ``weights (M,S)`` or ``None`` ->
+    the seeds ``centroids``, shared ``(k,d)`` or one block a lane
+    ``(M,k,d)``, ``weights (M,S)`` or ``None`` ->
     (centroids (M,k,d) in the seeds' dtype, sse (M,) f32, iters (M,) i32,
     converged (M,) bool[, skips (max_iters,2) i32]).
 
     Every lane is bit-for-bit the one-lane solve of
-    :func:`repro_torch.kernels.resident.lloyd_solve_resident`.  ``skips``
-    holds [lane-blocks skipped, lane-blocks live] per iteration, summed over
-    lanes (zeros for ``prune="none"``).
+    :func:`repro_torch.kernels.resident.lloyd_solve_resident` from its own
+    seeds.  ``skips`` holds [lane-blocks skipped, lane-blocks live] per
+    iteration, summed over lanes (zeros for ``prune="none"``).
     """
     out = solve_stack(subsets, centroids, weights, max_iters=max_iters,
                       tol=tol, reseed_empty=reseed_empty, prune=prune,

@@ -280,11 +280,12 @@ __host__ __device__ inline int tile_words(int k) {
 template <bool BOUNDS, bool CARRY_BF16>
 __global__ void __launch_bounds__(ST, 1)
 solve_kernel(const float* __restrict__ x, const float* __restrict__ c0,
-             const float* __restrict__ w, int S, int d, int k, int max_iters,
-             float tol, int reseed, int bb, int nb, RowSplit split, float* c,
-             int* labels, float* mind, float* gap, int* order, float* sums,
-             float* counts, float* margin, float* dacc, float* sse,
-             int* iters, int* conv, int* passes, int* skips) {
+             long long c0_stride, const float* __restrict__ w, int S, int d,
+             int k, int max_iters, float tol, int reseed, int bb, int nb,
+             RowSplit split, float* c, int* labels, float* mind, float* gap,
+             int* order, float* sums, float* counts, float* margin,
+             float* dacc, float* sse, int* iters, int* conv, int* passes,
+             int* skips) {
   __shared__ float red[NT];
   __shared__ float wv[ST / 32];
   __shared__ int wr[ST / 32];
@@ -305,6 +306,7 @@ solve_kernel(const float* __restrict__ x, const float* __restrict__ c0,
   const int tid = threadIdx.x;
   const long long kd = (long long)k * d;
   const float* xl = x + g * S * (long long)d;
+  const float* c0l = c0 + g * c0_stride;   // this lane's seeds
   const float* wl = w + g * S;
   float* cl = c + g * kd;
   int* lab = labels + g * S;
@@ -336,7 +338,7 @@ solve_kernel(const float* __restrict__ x, const float* __restrict__ c0,
 
   for (long long e = jlo * (long long)d + tid; e < jhi * (long long)d;
        e += ST) {
-    cl[e] = c0[e];
+    cl[e] = c0l[e];
   }
   if (BOUNDS) {
     for (int b = blo + tid; b < bhi; b += ST) {
@@ -570,12 +572,13 @@ bool valid_split(const int* rows, int R, int S, int bb, RowSplit* split) {
 }
 
 template <bool BOUNDS, bool CARRY_BF16>
-int launch(const float* x, const float* c0, const float* w, int M, int S,
-           int d, int k, int max_iters, float tol, int reseed, int bb, int nb,
-           const int* rows, int R, float* c, int* labels, float* mind,
-           float* gap, int* order, float* sums, float* counts, float* margin,
-           float* dacc, float* sse, int* iters, int* conv, int* passes,
-           int* skips, cudaStream_t stream) {
+int launch(const float* x, const float* c0, long long c0_stride,
+           const float* w, int M, int S, int d, int k, int max_iters,
+           float tol, int reseed, int bb, int nb, const int* rows, int R,
+           float* c, int* labels, float* mind, float* gap, int* order,
+           float* sums, float* counts, float* margin, float* dacc,
+           float* sse, int* iters, int* conv, int* passes, int* skips,
+           cudaStream_t stream) {
   if (R < 1 || R > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
   RowSplit split{};
   if (!valid_split(rows, R, S, bb, &split)) return (int)cudaErrorInvalidValue;
@@ -584,11 +587,11 @@ int launch(const float* x, const float* c0, const float* w, int M, int S,
   cudaError_t err = configure<BOUNDS, CARRY_BF16>(
       k, nb, R, (unsigned)(M * R), stream, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, solve_kernel<BOUNDS, CARRY_BF16>, x, c0, w,
-                           S, d, k,
-                           max_iters, tol, reseed, bb, nb, split, c, labels,
-                           mind, gap, order, sums, counts, margin, dacc, sse,
-                           iters, conv, passes, skips);
+  err = cudaLaunchKernelEx(&cfg, solve_kernel<BOUNDS, CARRY_BF16>, x, c0,
+                           c0_stride, w, S, d, k, max_iters, tol, reseed, bb,
+                           nb, split, c, labels, mind, gap, order, sums,
+                           counts, margin, dacc, sse, iters, conv, passes,
+                           skips);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -612,13 +615,16 @@ int clusters(int k, int nb, int R, int* n) {
 
 }  // namespace
 
+// Lane g starts from the seeds at c0 + g * c0_stride: a stride of 0 shares
+// one (k, d) block among the lanes, k * d gives each lane its own.
 // bb > 0 turns on prune="bounds"; with pruning blocks of bb rows, nb of them
 // a lane; gap, margin and dacc may be null otherwise.  carry_bf16 != 0 rounds
 // the carry to bfloat16 (CARRY_BF16).  R blocks a lane (a cluster); block r
 // of a cluster owns the lane's rows [rows[r], rows[r + 1]), rows a host
 // array of R + 1 entries from 0 to S, each but the last a multiple of bb
 // under pruning (else cudaErrorInvalidValue).
-extern "C" int lloyd_solve(const float* x, const float* c0, const float* w,
+extern "C" int lloyd_solve(const float* x, const float* c0,
+                           long long c0_stride, const float* w,
                            int M, int S, int d, int k, int max_iters,
                            float tol, int reseed, int bb, int nb,
                            int carry_bf16, const int* rows, int R, float* c,
@@ -630,10 +636,10 @@ extern "C" int lloyd_solve(const float* x, const float* c0, const float* w,
   auto run = [&](auto bounds, auto carry) {
     constexpr bool B = decltype(bounds)::value;
     constexpr bool C = decltype(carry)::value;
-    return launch<B, C>(x, c0, w, M, S, d, k, max_iters, tol, reseed,
-                        B ? bb : 0, B ? nb : 0, rows, R, c, labels, mind, gap,
-                        order, sums, counts, margin, dacc, sse, iters, conv,
-                        passes, skips, stream);
+    return launch<B, C>(x, c0, c0_stride, w, M, S, d, k, max_iters, tol,
+                        reseed, B ? bb : 0, B ? nb : 0, rows, R, c, labels,
+                        mind, gap, order, sums, counts, margin, dacc, sse,
+                        iters, conv, passes, skips, stream);
   };
   using T = std::true_type;
   using F = std::false_type;

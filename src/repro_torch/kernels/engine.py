@@ -13,7 +13,9 @@ written out, so every engine method takes a stack, ``points (M,S,d)``,
   * ``sse(points, centroids, weights, lanes) -> (L,)``.
   * ``solve_batched(subsets, init, weights, ...) -> (centroids (M,k,d), sse
     (M,), iters (M,) i32, converged (M,) bool)`` — the reference's vmap of a
-    ``lax.while_loop``, as a host loop over launches on the active lanes.
+    ``lax.while_loop``, as a host loop over launches on the active lanes;
+    ``init`` is the shared ``(k,d)`` seeds or ``(M,k,d)``, one block a lane,
+    and each lane is bit for bit its ``solve`` from its own seeds.
   * ``solve(points, init, weights, ...)`` — one subset, a stack of one.
   * ``update_minibatch(points, centroids, counts, weights)`` — one
     mini-batch refresh of one subset: ``step`` on a stack of one lane, then
@@ -181,8 +183,9 @@ class LloydEngine:
     def solve_batched(self, subsets, init_centroids, weights=None, *,
                       max_iters: int, tol: float, reseed_empty: bool = False,
                       prune: str = "none"):
-        """A stack of solves: (M,S,d),(k,d)[,(M,S)] -> (centroids (M,k,d)
-        in the seeds' dtype, sse (M,), iters (M,) i32, converged (M,) bool).
+        """A stack of solves: (M,S,d), the seeds (k,d) shared or (M,k,d) a
+        lane each[, (M,S)] -> (centroids (M,k,d) in the seeds' dtype, sse
+        (M,), iters (M,) i32, converged (M,) bool).
 
         The host loop ``lloyd_loop``, then one more pass per lane for the
         SSE.  ``prune`` is validated only: a host loop has no block state to
@@ -364,7 +367,9 @@ class ResidentEngine(FusedEngine):
     def solve_batched(self, subsets, init_centroids, weights=None, *,
                       max_iters: int, tol: float, reseed_empty: bool = False,
                       prune: str = "none"):
-        outs = [self.solve(subsets[i], init_centroids,
+        per_lane = init_centroids.dim() == 3
+        outs = [self.solve(subsets[i],
+                           init_centroids[i] if per_lane else init_centroids,
                            None if weights is None else weights[i],
                            max_iters=max_iters, tol=tol,
                            reseed_empty=reseed_empty, prune=prune)
@@ -374,11 +379,11 @@ class ResidentEngine(FusedEngine):
 
 class BatchedEngine(ResidentEngine):
     """The whole-solve kernel over a whole S2 stack in ONE launch, one
-    thread-block cluster per lane (``batch_resident.cluster_plan``); each
-    lane is bit-for-bit the ``resident`` solve.  A shape beyond the kernel's
-    shared memory (``batch_resident.batched_feasible``) runs the fused
-    engine's per-step host loop over the whole stack instead, as the
-    reference falls back.  Single solves (``solve``) are the resident
+    thread-block cluster per lane (``batch_resident.cluster_plan``), from
+    shared or per-lane seeds; each lane is bit-for-bit the ``resident``
+    solve.  A shape beyond the kernel's shared memory
+    (``batch_resident.batched_feasible``) runs the fused engine's per-step
+    host loop over the whole stack instead, as the reference falls back.  Single solves (``solve``) are the resident
     engine's."""
 
     name = "batched"
@@ -391,7 +396,7 @@ class BatchedEngine(ResidentEngine):
         kw = dict(max_iters=max_iters, tol=tol, reseed_empty=reseed_empty,
                   prune=prune)
         _, s, d = subsets.shape
-        if not batch_resident.batched_feasible(s, d, init_centroids.shape[0],
+        if not batch_resident.batched_feasible(s, d, init_centroids.shape[-2],
                                                prune=prune,
                                                device=subsets.device):
             return self._fused_loop(subsets, init_centroids, weights, **kw)

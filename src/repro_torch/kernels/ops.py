@@ -5,11 +5,12 @@ The fused-pass wrappers take one subset, ``(n,d)`` points with ``(k,d)``
 centroids as in the reference, or a stack, ``(M,S,d)`` with ``(M,k,d)`` and
 optional ``lanes`` (``kernels/fused.py``).  The whole-solve wrappers take
 one subset (``lloyd_solve_resident``, ``kernels/resident.py``) or a stack
-with shared ``(k,d)`` seeds (``lloyd_solve_batched``,
-``kernels/batch_resident.py``).  ``assign`` and ``centroid_update`` (the
-``twopass`` engine's two kernels) take one subset or a stack with ``lanes``;
-``init_sweep`` runs one k-means|| round (``kernels/init.py``).  All run the
-CUDA kernel on CUDA tensors and its plain version on CPU tensors.
+from shared ``(k,d)`` seeds or ``(M,k,d)``, one block a lane
+(``lloyd_solve_batched``, ``kernels/batch_resident.py``).  ``assign`` and
+``centroid_update`` (the ``twopass`` engine's two kernels) take one subset
+or a stack with ``lanes``; ``init_sweep`` runs one k-means|| round
+(``kernels/init.py``).  All run the CUDA kernel on CUDA tensors and its
+plain version on CPU tensors.
 
 Points and centroids may be float32 or bfloat16.  The single-pass wrappers
 take ``spec=``, a :class:`~repro_torch.kernels.specs.KernelSpec`: ``None``

@@ -14,6 +14,14 @@ import torch
 PLAIN_SCORE_ELEMS = 1 << 26
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in float32 with one rounding, as XLA's compiled
+    programs fuse a product into a sum: the product of two f32 values is
+    exact in float64, so only the sum rounds (to float64, then to float32;
+    the two roundings part from one in about 2**-29 of cases)."""
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
+
+
 def divide_or_keep(sums: torch.Tensor, counts: torch.Tensor,
                    old_centroids: torch.Tensor) -> torch.Tensor:
     """Keep-old-centroid division policy: ``sums / counts`` where a cluster

@@ -2,7 +2,8 @@
 kernel, and the assign, centroid-update and init-sweep kernels against their
 plain versions; the whole-solve kernel's bitwise contracts (bounds == exact,
 one batched launch == one resident launch per lane, every cluster size ==
-one block a lane, forced with ``solve_stack(..., cluster=R)``); the two-pass
+one block a lane, forced with ``solve_stack(..., cluster=R)``), also from
+per-lane ``(M, k, d)`` seeds; the two-pass
 step's sums bit for bit the fused pass's, on a stack and on one large lane;
 repeat launches bit-identical; the bf16 kernels (``KernelSpec(acc_dtype=
 "bfloat16")``) against their plain versions and the bf16 carry, batched ==
@@ -244,6 +245,53 @@ def test_solve_counts_only_launches(card):
     resident.lloyd_solve_resident(x[0], c, w[0], **KW)
     assert (batch_resident.launches, resident.launches) == (
         before[0], before[1] + 1)
+
+
+def _per_lane_seeds(x, c):
+    """One seed block a lane, each a different cut of the lane's own
+    points, the duplicates of the shared seeds kept so that reseed
+    fires."""
+    m, _, _ = x.shape
+    k = c.shape[0]
+    seeds = torch.stack([x[(i + 1) % m, 7 * i:7 * i + k] for i in range(m)])
+    seeds[:, 7] = seeds[:, 3]
+    return seeds.contiguous()
+
+
+@pytest.mark.parametrize("prune", ["none", "bounds"])
+def test_per_lane_seeds_match_plain_version(card, prune):
+    x, c, w = _solve_stack(card)
+    seeds = _per_lane_seeds(x, c)
+    kw = dict(KW, prune=prune)
+    before = batch_resident.launches
+    got = batch_resident.solve_stack(x, seeds, w, **kw)
+    assert batch_resident.launches == before + 1
+    want = batch_resident.lloyd_solve_plain(x, seeds, w, **kw)
+    assert torch.equal(got.iters, want.iters)
+    assert torch.equal(got.converged, want.converged)
+    assert torch.equal(got.passes, want.passes)
+    torch.testing.assert_close(got.centroids, want.centroids, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(got.sse, want.sse, rtol=1e-4, atol=0.0)
+    # the seeds differ, and so do the lanes' solves from the shared seeds
+    shared = batch_resident.solve_stack(x, c, w, **kw)
+    assert not torch.equal(got.iters, shared.iters) or not torch.equal(
+        got.centroids, shared.centroids)
+
+
+def test_per_lane_seeds_are_resident_solves_bit_for_bit(card):
+    x, c, w = _solve_stack(card)
+    seeds = _per_lane_seeds(x, c)
+    for r in (1, 4):
+        stack = batch_resident.solve_stack(x, seeds, w, cluster=r, **KW)
+        for i in range(x.shape[0]):
+            one = resident.lloyd_solve_resident(x[i], seeds[i], w[i], **KW)
+            assert all(torch.equal(a[i], b) for a, b in zip(stack, one)), (
+                r, i)
+    # shared seeds: the same bits as the same seeds given to every lane
+    every = c.expand(x.shape[0], *c.shape).contiguous()
+    assert _same(batch_resident.solve_stack(x, c, w, **KW),
+                 batch_resident.solve_stack(x, every, w, **KW))
 
 
 def test_assign_kernel_matches_plain_version_and_fused(card):

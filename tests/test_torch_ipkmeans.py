@@ -164,7 +164,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.core.merge, repro_torch.core.kdtree, "
             "repro_torch.kernels.specs, repro_torch.core.io_model, "
             "repro_torch.core.serve, repro_torch.kernels.tuning, "
-            "repro_torch.launch.serve_kmeans\n"
+            "repro_torch.launch.serve_kmeans, repro_torch.data, "
+            "repro_torch.checkpoint, repro_torch.distributed.runtime\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
