@@ -80,6 +80,22 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      psi_prev from a round 0, against its plain version (draws equal except
      at boundary rows); round 0 draws nothing, no candidate leaves mind as
      it was, a repeat is bit-identical; its times;
+  9a. [tune] (after [init]): every score tile width (``KernelSpec.
+     block_k`` 64 and 256) of the fused step (both modes), the assign and
+     the init sweep, float32 and bfloat16, bit for bit the default width's
+     launch on the main stack, on a ragged lane of [assign]'s at k = 100
+     and 4100, and on [init]'s sweep; the default's outputs against the
+     plain versions; each width timed beside the default, its bound and the
+     default row's library call.  The whole solve of the main stack at 16,
+     64 and 512 lanes a launch (``group_t``), bit for bit one launch, in
+     ceil(512 / t) launches, each launch's R, its times.  The tuner's sweep
+     (``autotune_step`` at 16384x64x1024 and the serving bucket
+     4096x64x1024, ``autotune_init_sweep`` at 2**21 rows against 2048
+     candidates, ``autotune_batched`` on the main stack with reseed on)
+     into a fresh tuning cache, and the autotune CLI on a small shape;
+     then [main]'s configuration on ``batched`` with that cache: bit for
+     bit [main]'s run in ceil(512 / t*) launches, its S2 time beside
+     [main]'s;
  10. [seed]: k-means|| seeding of the main input through ``resolve_init``
      on the kernels (9 sweeps, 1 assign) and on the plain oracles with the
      same draws, its stage times; each of the kernel run's sweeps and its
@@ -141,8 +157,9 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      a trip) against the single-process job, and one trip of it against
      one single-process trip; each rank's stage times, launches,
      collectives and bytes by stage, and peak memory;
- 17. a ``{"kernels": [...]}`` line (the six kernels and their bf16
-     variants; ``launches_by_path`` with the distributed paths), the
+ 17. a ``{"kernels": [...]}`` line (the six kernels, their bf16
+     variants and [tune]'s tile-width variants; ``launches_by_path`` with
+     the distributed paths), the
      card's line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no last line.  Without a CUDA
@@ -290,6 +307,23 @@ SERVE_REFRESH_EVERY = 256
 SERVE_REFRESH_ROWS = 1 << 16
 SERVE_DRIFT = 0.25
 SERVE_COALESCE = 64
+# [tune]: the score tile widths (KernelSpec.block_k) held bit for bit
+# against the default's, 128, and timed beside it; the ragged lane (rows
+# and centroid counts not multiples of 64 or 128) cut from [assign]'s
+# lane; the lanes a launch at which the whole solve of the main stack is
+# held bit for bit against one launch; the sweep's shapes: one main-path
+# lane and the serving tier's largest bucket for the fused step, 2**21
+# rows against INIT_C candidates for the init sweep, the main stack
+# (TUNE_SOLVE_ITERS trips) for the group size; the autotune CLI's shape
+TUNE_WIDTHS = (64, 256)
+TUNE_RAGGED_ROWS = ASSIGN_N - 37
+TUNE_RAGGED_KS = (100, 4100)
+TUNE_GROUPS = (16, 64, 512)
+TUNE_STEP_SIZES = ((16384, D, K), (4096, D, K))
+TUNE_INIT_N = 1 << 21
+TUNE_SOLVE_ITERS = 8
+TUNE_CLI = ["--sizes", "4096x64x1024", "--repeats", "1", "--group-ts",
+            "4,16", "--stack-m", "16", "--init-sweep"]
 # [recover]: ipkmeans_recoverable at [main]'s size and configuration on
 # ``batched``: RECOVER_WORKERS workers (a stack of M / RECOVER_WORKERS lanes
 # each), RECOVER_ITERS Lloyd iterations a round, a snapshot every
@@ -320,8 +354,8 @@ def nvidia_smi_line() -> str:
 
 def kernel_name(mangled: str) -> str:
     """A kernel's name from its mangled symbol: the identifier after the
-    (anonymous) namespace, with <true>/<false> for each bool template
-    flag."""
+    (anonymous) namespace, with its template arguments, <true>/<false> for
+    a bool and the number for an int (the score tile width)."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -331,11 +365,11 @@ def kernel_name(mangled: str) -> str:
         return mangled
     i += n.end()
     ident = mangled[i:i + int(n.group(0))]
-    flags = re.match(r"I((?:Lb[01]E)+)E", mangled[i + int(n.group(0)):])
-    if not flags:
+    args = re.match(r"I((?:L[bi]\d+E)+)E", mangled[i + int(n.group(0)):])
+    if not args:
         return ident
-    names = ["true" if f == "1" else "false"
-             for f in re.findall(r"Lb([01])E", flags.group(1))]
+    names = [v if kind == "i" else ("true" if v == "1" else "false")
+             for kind, v in re.findall(r"L([bi])(\d+)E", args.group(1))]
     return f"{ident}<{', '.join(names)}>"
 
 
@@ -2081,6 +2115,366 @@ def phase_init(torch, report: dict, main: dict) -> bool:
     return True
 
 
+
+def tune_sums_check(tag, torch, x, c, w, step, spec):
+    """A fused step's sums, counts and SSE against the plain versions on
+    the step's own labels (float32: counts equal, sums within SUM_RTOL of
+    their largest magnitude, SSE within SUM_RTOL; bfloat16:
+    bf16_sums_check) -> (ok, max |sum error|)."""
+    from repro_torch.kernels import centroid_update, ref
+    lanes = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    k = c.shape[1]
+    ps = centroid_update.centroid_update_plain(x, step.labels, w, k, lanes,
+                                               spec)
+    wr = ref.round_bf16(w) if spec.bf16 else w
+    sse_want = torch.sum(wr * step.mind, dim=1)
+    sse_ok = bool(torch.allclose(step.sse, sse_want, rtol=SUM_RTOL, atol=0))
+    if spec.bf16:
+        ok, err, _ = bf16_sums_check(tag, torch, x, step.labels, w, k,
+                                     (step.sums, step.counts), ps, lanes)
+        return ok and sse_ok, err
+    err = float(torch.max(torch.abs(step.sums - ps[0])))
+    tol = SUM_RTOL * float(torch.max(torch.abs(ps[0]))) + 1e-6
+    cnt_ok = torch.equal(step.counts, ps[1])
+    ok = cnt_ok and err <= tol and sse_ok
+    print(f"[{tag}] sums vs plain (same labels): counts equal {cnt_ok}, "
+          f"max|err| {err:.3g} (tol {tol:.3g}), sse rtol {SUM_RTOL}: "
+          f"{sse_ok}: passes {ok}", flush=True)
+    return ok, err
+
+
+def tune_labels_check(tag, torch, x, c, got, spec, x2_rows=None):
+    """Labels and distances (an assign pass, ``got``) against the plain
+    score in row chunks (``fused.plain_assign``; ``||x||^2`` of
+    ``x2_rows`` where given, as the assign kernel's bf16 mode adds it):
+    ``label_agreement`` in float32, ``bf16_assign_check`` in bfloat16 ->
+    (ok, max |mind error|)."""
+    from repro_torch.kernels import fused, ref
+
+    def block(xs, xn):
+        labels, mind, _ = fused.plain_assign(xs, c, spec.bf16, x2_rows=xn)
+        return labels, mind
+
+    if x2_rows is None:
+        want = ref.by_row_chunks(lambda xs: block(xs, None), x, c.shape[1])
+    else:
+        rows = max(1, ref.PLAIN_SCORE_ELEMS // (x.shape[0] * c.shape[1]))
+        parts = [block(x[:, lo:lo + rows], x2_rows[:, lo:lo + rows])
+                 for lo in range(0, x.shape[1], rows)]
+        want = tuple(torch.cat(t, dim=-1) for t in zip(*parts))
+    if spec.bf16:
+        ok, _, _, err = bf16_assign_check(tag, torch, x, c, got, want,
+                                          x2_rows=x2_rows)
+        return ok, err
+    from repro_torch.kernels.fused import AssignOut
+    ok, _, err = label_agreement(tag, x, c, AssignOut(*got),
+                                 AssignOut(*want), torch)
+    return ok, err
+
+
+def phase_tune(torch, reports: dict, main: dict, big):
+    """[tune]: (a) every score tile width of TUNE_WIDTHS in the assign,
+    fused (accumulate and assign-only) and init-sweep kernels, float32 and
+    bfloat16, bit for bit the default width's launch on the main stack, on
+    a ragged lane at each of TUNE_RAGGED_KS centroids and on an init sweep
+    of 2**23 rows against INIT_C candidates; the default's outputs against
+    the plain versions (so every width's); each width timed beside the
+    default in this phase, the default row's bound and library call.
+    (b) The whole solve of the main stack at each of TUNE_GROUPS lanes a
+    launch, bit for bit one launch, ceil(M / t) launches, each launch's R,
+    and times.  (c) The sweep into a fresh tuning cache: ``autotune_step``
+    at TUNE_STEP_SIZES, ``autotune_init_sweep`` at TUNE_INIT_N x D x INIT_C,
+    ``autotune_batched`` on the main stack's shape (reseed on), then the
+    autotune CLI on TUNE_CLI.  (d) With that cache, [main]'s configuration
+    on ``batched``: bit for bit [main]'s run in ceil(M / t*) launches, its
+    S2 time beside [main]'s.  Returns the width variants' report rows, or
+    None when a check failed."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.kernels import assign, fused, init, specs, tuning
+    from repro_torch.kernels import batch_resident as br
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    subsets, w, x = main["subsets"], main["masks"], main["x"]
+    cents = main["res_f"].intermediate.contiguous()
+    m, s, d = subsets.shape
+    n = x.shape[0]
+    x1, c1, _, k1 = big
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    ragged = x1[:, :TUNE_RAGGED_ROWS].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    ell = 2.0 * K
+    cands = x[torch.randperm(n, generator=gen, device=dev)[:INIT_C]]
+    m0 = init.init_sweep(x, cands[:1], torch.full((n,), torch.inf,
+                                                  device=dev),
+                         torch.rand(n, generator=gen, device=dev), 0.0,
+                         ell=ell)[0]
+    psi0 = torch.sum(m0)
+    u = torch.rand(n, generator=gen, device=dev)
+    inputs = [("main stack", subsets, cents, w)] + [
+        (f"ragged lane {TUNE_RAGGED_ROWS} rows, k={k}", ragged,
+         c1[:, :k].contiguous(), torch.ones(ragged.shape[:2], device=dev))
+        for k in TUNE_RAGGED_KS]
+
+    # (a) every width against the default, bit for bit; the default
+    # against the plain versions
+    ok = True
+    errs, launched = {}, {}
+    for acc in ("float32", "bfloat16"):
+        base = specs.KernelSpec(acc_dtype=acc)
+        tag = "tune" if acc == "float32" else "tune bf16"
+        for what, xs, cs, ws in inputs:
+            def calls(sp):
+                return {"fused_lloyd": (
+                            *fused.fused_lloyd(xs, cs, ws, spec=sp,
+                                               return_labels=True),
+                            *fused.fused_lloyd(xs, cs, spec=sp,
+                                               assign_only=True)),
+                        "assign": tuple(assign.assign(xs, cs, spec=sp))}
+            want = calls(base)
+            same = {}
+            for bk in TUNE_WIDTHS:
+                reset_counts()
+                got = calls(base.replace(block_k=bk))
+                torch.cuda.synchronize()
+                if what == "main stack":
+                    counts = read_counts()
+                    for name in got:
+                        launched[(name, acc, bk)] = counts[name]
+                same[bk] = {name: identical(got[name], want[name])
+                            for name in got}
+            step = fused.StepLabelsOut(*want["fused_lloyd"][:5])
+            ok_l, err_l = tune_labels_check(
+                f"{tag} {what}", torch, xs, cs,
+                want["fused_lloyd"][5:], base)
+            ok_a, err_a = tune_labels_check(
+                f"{tag} {what} assign", torch, xs, cs, want["assign"],
+                base, x2_rows=xs if base.bf16 else None)
+            ok_s, err_s = tune_sums_check(f"{tag} {what}", torch, xs, cs,
+                                          ws, step, base)
+            modes = identical(want["fused_lloyd"][3:5],
+                              want["fused_lloyd"][5:])
+            print(f"[{tag}] {what}, k={cs.shape[1]}: block_k "
+                  f"{TUNE_WIDTHS} bit for bit block_k 128 (fused step, "
+                  f"its assign-only mode, assign): {same}; the step's "
+                  f"labels are the assign-only mode's: {modes}", flush=True)
+            ok = ok and ok_l and ok_a and ok_s and modes and all(
+                all(v.values()) for v in same.values())
+            if what == "main stack":
+                errs[("fused_lloyd", acc)] = err_s
+                errs[("assign", acc)] = err_a
+        got0 = init.init_sweep(x, cands, m0, u, psi0, ell=ell, spec=base)
+        same = {}
+        for bk in TUNE_WIDTHS:
+            reset_counts()
+            got = init.init_sweep(x, cands, m0, u, psi0, ell=ell,
+                                  spec=base.replace(block_k=bk))
+            torch.cuda.synchronize()
+            launched[("init_sweep", acc, bk)] = read_counts()["init_sweep"]
+            same[bk] = identical(got, got0)
+        if base.bf16:
+            plain = init.init_sweep_plain(x, cands, m0, u, psi0, ell=ell,
+                                          spec=base)
+            ok_i, err_i, _ = bf16_init_check(f"{tag} init", torch, x, cands,
+                                             u, psi0, got0, plain)
+        else:
+            plain = init.init_sweep_plain(x, cands, m0, u, psi0, ell=ell)
+            ok_i, _, err_i = sweep_agreement(f"{tag} init", got0, plain, x,
+                                             u, psi0, ell, torch)
+        errs[("init_sweep", acc)] = err_i
+        print(f"[{tag}] init sweep {n}x{D} against {INIT_C} candidates: "
+              f"block_k {TUNE_WIDTHS} bit for bit block_k 128: {same}",
+              flush=True)
+        ok = ok and ok_i and all(same.values())
+    if not ok:
+        print("[tune] FAIL a tile width against the default or the plain "
+              "version", flush=True)
+        return None
+
+    # the widths' times, each beside the default's in this phase, the
+    # default row's bound and library call
+    variants = []
+    n1 = x1.shape[1]
+    jobs = {
+        "fused_lloyd": (lambda sp: fused.fused_lloyd(subsets, cents, w,
+                                                     spec=sp),
+                        lambda sp: fused.fused_lloyd_plain(subsets, cents, w,
+                                                           spec=sp),
+                        2.0 * m * s * K * d,
+                        4.0 * m * (s * d + K * d + s + K * d + K + 1)),
+        "assign": (lambda sp: assign.assign(x1, c1, spec=sp),
+                   lambda sp: assign.assign_plain(x1, c1, one, sp),
+                   2.0 * n1 * k1 * D, 4.0 * (n1 * D + k1 * D) + 8.0 * n1),
+        "init_sweep": (lambda sp: init.init_sweep(x, cands, m0, u, psi0,
+                                                  ell=ell, spec=sp),
+                       lambda sp: init.init_sweep_plain(x, cands, m0, u,
+                                                        psi0, ell=ell,
+                                                        spec=sp),
+                       2.0 * n * INIT_C * D,
+                       4.0 * (n * D + INIT_C * D + 3 * n + n + 1) + n),
+    }
+    for acc in ("float32", "bfloat16"):
+        base = specs.KernelSpec(acc_dtype=acc)
+        for name, (run, plain_run, fl, nb) in jobs.items():
+            times = {bk: cuda_time_ms(lambda: run(base.replace(block_k=bk)),
+                                      reps=3, warmup=1)
+                     for bk in (128, *TUNE_WIDTHS)}
+            plain_ms = cuda_time_ms(lambda: plain_run(base), reps=1,
+                                    warmup=1)
+            bound, by = (bf16_bound_ms if base.bf16 else bound_ms)(fl, nb)
+            lib = None if base.bf16 else reports[name]["library_ms"]
+            print(f"[tune{' bf16' if base.bf16 else ''} {name}] by block_k "
+                  f"{ {bk: round(t, 4) for bk, t in times.items()} } ms, "
+                  f"plain version {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}), library call {lib}", flush=True)
+            for bk in TUNE_WIDTHS:
+                label = f"bf16,block_k={bk}" if base.bf16 else f"block_k={bk}"
+                variants.append({
+                    "name": f"{name}[{label}]", "route": "cuda",
+                    "source": reports[name]["source"],
+                    "replaces": reports[name]["replaces"],
+                    "launches": launched[(name, acc, bk)],
+                    "max_abs_err": errs[(name, acc)], "ms": times[bk],
+                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                    "library_ms": lib, "ms_block_k_128": times[128]})
+
+    # the serving tier's smallest and largest buckets: one assign-only
+    # launch of the fused pass against [main]'s batched centroids, its
+    # device time (torch.profiler, the norms and the score kernel; at
+    # these sizes CUDA events over back-to-back calls time the host)
+    served = main["res_b"].centroids.unsqueeze(0).contiguous()
+    serve_ms = {}
+    for rows in (8, SERVE_MAX_REQUEST):
+        q = x[:rows].unsqueeze(0).contiguous()
+        outs = {bk: fused.fused_lloyd(q, served, assign_only=True,
+                                      spec=specs.KernelSpec(block_k=bk))
+                for bk in (128, *TUNE_WIDTHS)}
+        same = all(identical(o, outs[128]) for o in outs.values())
+        serve_ms[rows] = {bk: round(sum(pass_times(
+            torch, lambda: fused.fused_lloyd(
+                q, served, assign_only=True,
+                spec=specs.KernelSpec(block_k=bk)), reps=20).values()), 4)
+            for bk in outs}
+        print(f"[tune] serving bucket {rows} rows, k={K}: device time of an "
+              f"assign-only launch by block_k {serve_ms[rows]} ms; bit for "
+              f"bit block_k 128: {same}", flush=True)
+        if not same:
+            print("[tune] FAIL a tile width at a serving bucket", flush=True)
+            return None
+    reports["fused_lloyd"]["serve_ms_by_block_k"] = serve_ms
+
+    # (b) the whole solve at each group size, bit for bit one launch
+    init_c = main["init"]
+    kw = dict(max_iters=MAX_ITERS, tol=TOL, reseed_empty=True)
+    reset_counts()
+    whole = solve_batched(subsets, init_c, w, **kw)
+    torch.cuda.synchronize()
+    ok = read_counts() == counts_of(lloyd_solve_batched=1)
+    ms_one = cuda_time_ms(lambda: solve_batched(subsets, init_c, w, **kw),
+                          reps=2, warmup=1)
+    by_group = {}
+    for t in TUNE_GROUPS:
+        reset_counts()
+        got = solve_batched(subsets, init_c, w, group_t=t, **kw)
+        torch.cuda.synchronize()
+        n_launch = read_counts()["lloyd_solve_batched"]
+        groups = br.lane_groups(m, t)
+        rs = [br.cluster_plan(hi - lo, s, K, device=dev).r
+              for lo, hi in groups]
+        ms_t = cuda_time_ms(lambda: solve_batched(subsets, init_c, w,
+                                                  group_t=t, **kw),
+                            reps=2, warmup=1)
+        same = identical(got, whole)
+        by_group[t] = dict(ms=ms_t, launches=n_launch, r=sorted(set(rs)))
+        print(f"[tune] whole solve of the main stack at group_t={t}: "
+              f"{n_launch} launches (want {-(-m // t)}), R by launch "
+              f"{rs if len(rs) <= 8 else f'{rs[:4]} ... {rs[-2:]}'}, "
+              f"{ms_t:.4f} ms (one launch {ms_one:.4f} ms); bit for bit one"
+              f" launch: {same}", flush=True)
+        ok = ok and same and n_launch == -(-m // t)
+    if not ok:
+        print("[tune] FAIL the whole solve at a group size", flush=True)
+        return None
+
+    # (c) the sweep into a fresh cache
+    tmp = Path(tempfile.mkdtemp(prefix="tune-"))
+    cache = tuning.TuningCache.load(tmp / "kernel_specs.json")
+    t0 = time.perf_counter()
+    for ns, ds, ks in TUNE_STEP_SIZES:
+        best, rows = tuning.autotune_step(ns, ds, ks, cache=cache, device=dev)
+        print(f"[tune] autotune_step {ns}x{ds}x{ks}: "
+              + ", ".join(f"block_k={r['spec'].block_k} "
+                          f"{r['time_us']:.1f} us" for r in rows)
+              + f" -> block_k={best.block_k}", flush=True)
+    best_i, rows = tuning.autotune_init_sweep(TUNE_INIT_N, D, INIT_C,
+                                              cache=cache, device=dev)
+    print(f"[tune] autotune_init_sweep {TUNE_INIT_N}x{D}x{INIT_C}: "
+          + ", ".join(f"block_k={r['spec'].block_k} {r['time_us']:.1f} us"
+                      for r in rows) + f" -> block_k={best_i.block_k}",
+          flush=True)
+    best_b, rows = tuning.autotune_batched(
+        m, s, d, K, cache=cache, device=dev, reseed_empty=True,
+        solve_iters=TUNE_SOLVE_ITERS, repeats=1)
+    curve = {r["group_t"]: r["time_us"] for r in rows}
+    print(f"[tune] autotune_batched {m}x{s}x{d}, k={K}, reseed on, "
+          f"{TUNE_SOLVE_ITERS} trips, the default group sizes "
+          f"{tuning.GROUP_TS} and the cap (one run a size after a warm-up):"
+          f" " + ", ".join(f"t={t} {curve[t] / 1e3:.2f} ms"
+                           for t in sorted(curve))
+          + f" -> group_t={best_b.group_t}", flush=True)
+    path = cache.save()
+    sweep_s = time.perf_counter() - t0
+    cli_cache = tmp / "cli.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.autotune",
+                           *TUNE_CLI, "--cache", str(cli_cache)],
+                          capture_output=True, text=True, env=env, cwd=ROOT)
+    cli_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"[tune] autotune CLI: {line}", flush=True)
+    cli_ok = proc.returncode == 0 and "cache round-trip OK" in proc.stdout
+    print(f"[tune] the sweep {sweep_s:.1f} s, the CLI {cli_s:.1f} s (exit "
+          f"{proc.returncode}){'' if cli_ok else ': ' + proc.stderr[-2000:]}",
+          flush=True)
+    if not cli_ok:
+        print("[tune] FAIL the autotune CLI", flush=True)
+        return None
+
+    # (d) [main]'s configuration on batched with the swept cache
+    patch = use_cache(str(path))
+    try:
+        t_star = tuning.lookup_group_t(s, d, K, m, device=dev)
+        cfg_b = main["config"]("batched")
+        res, secs, counts = run_path(torch, x, init_c, cfg_b, dev)
+        s2 = stage_times(torch, x, init_c, cfg_b, dev)[1]
+    finally:
+        patch.stop()
+        tuning.reload_cache()
+    ref_b = main["res_b"]
+    same = (torch.equal(res.centroids, ref_b.centroids)
+            and torch.equal(res.intermediate, ref_b.intermediate)
+            and torch.equal(res.subset_iters, ref_b.subset_iters)
+            and torch.equal(res.sse, ref_b.sse))
+    want_launch = -(-m // t_star) if t_star else 0
+    print(f"[tune] [main] on batched with the swept cache (group_t={t_star}):"
+          f" {secs:.3f} s, launches {counts}, want {want_launch} whole-solve "
+          f"launches; S2 {s2:.3f} s against [main]'s {main['stages_b'][1]:.3f}"
+          f" s; centroids, intermediate centroids, iterations and SSE bit for"
+          f" bit [main]'s: {same}", flush=True)
+    ok = (same and t_star is not None
+          and counts == counts_of(lloyd_solve_batched=want_launch))
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[tune] the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not ok:
+        print("[tune] FAIL [main] with the swept cache", flush=True)
+        return None
+    reports["lloyd_solve_batched"]["by_group_t"] = by_group
+    reports["lloyd_solve_batched"]["tuned_group_t"] = t_star
+    return variants
+
 def phase_seed(torch, init_rep: dict, assign_rep: dict, main: dict) -> bool:
     """k-means|| seeding on the main input: through ``resolve_init`` on the
     kernels (launch counts), stage by stage (times), each kernel stage
@@ -3491,9 +3885,13 @@ def main() -> int:
         return fail("checkpoint round trip")
     if not phase_update(torch, update_rep, main_run, big):
         return fail("centroid-update kernel against its plain version")
-    del big
     if not phase_init(torch, init_rep, main_run):
         return fail("init-sweep kernel against its plain version")
+    tune = phase_tune(torch, {r["name"]: r for r in (
+        report, batched, assign_rep, init_rep)}, main_run, big)
+    if tune is None:
+        return fail("score tile widths, group sizes and the tuner's sweep")
+    del big
     if not phase_seed(torch, init_rep, assign_rep, main_run):
         return fail("k-means|| seeding")
     if not phase_twopass(torch, update_rep, assign_rep, main_run):
@@ -3515,10 +3913,10 @@ def main() -> int:
                  **bf16[r["name"]]}
                 for r in (report, batched, assign_rep, update_rep, init_rep)]
     reports = (report, batched, res_rep, assign_rep, update_rep, init_rep,
-               *variants)
+               *variants, *tune)
     kernels = [{key: r[key] for key in KEYS + ("launches_by_path",)
                 if key in r} for r in reports]
-    for r in (report, batched, res_rep, update_rep, *variants):
+    for r in (report, batched, res_rep, update_rep, *variants, *tune):
         extra = {key: r[key] for key in r if key not in KEYS}
         print(json.dumps({r["name"]: extra}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

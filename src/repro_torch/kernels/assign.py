@@ -17,7 +17,9 @@ masks the ragged edges itself.
 Points and centroids may be float32 or bfloat16.  ``spec`` with
 ``acc_dtype="bfloat16"`` gives the reference's bf16 kernel: the score of
 ``ref.bf16_scores``, and ``||x||^2`` of the points as given added back (the
-reference's assign adds it outside its kernel, unrounded).
+reference's assign adds it outside its kernel, unrounded).  ``spec.
+block_k`` picks the kernel's centroid tile (``specs.BLOCK_KS``), which
+changes no bit of the result.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ def _kernel():
         from repro_torch.kernels import _build
         fn = _build.load(SOURCE).assign
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 3 + [i] * 5 + [p] * 4
+        fn.argtypes = [p] * 3 + [i] * 6 + [p] * 4
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -90,7 +92,7 @@ def _launch(x, c, lanes, spec) -> AssignOut:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel()(x.data_ptr(), c.data_ptr(), lanes.data_ptr(), n_l,
-                        s, d, k, int(spec.bf16),
+                        s, d, k, int(spec.bf16), spec.block_k,
                         cn.data_ptr(), out.labels.data_ptr(),
                         out.mind.data_ptr(), stream)
     if err != 0:

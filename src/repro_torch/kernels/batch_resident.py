@@ -12,8 +12,17 @@ tiles and owns a share of the clusters; the blocks meet at cluster
 barriers and exchange their label histograms, movements and reseed
 candidates through distributed shared memory, so the result has the same
 bits at every R.  A lane that converges leaves its loop; the others go on.
-There is no group size: per-lane skipping under ``prune="bounds"`` is the
-reference's behaviour at ``group_t=1``.
+Per-lane skipping under ``prune="bounds"`` is the reference's behaviour at
+``group_t=1``.
+
+``group_t`` (the reference's subsets per grid step, ``KernelSpec.group_t``)
+is the lanes of one launch here: a stack of M lanes runs as ceil(M / t)
+launches of lanes [i t, (i + 1) t), in lane order, each with its own
+:func:`cluster_plan`.  A lane's solve reads no other lane, so every t gives
+the one-launch result bit for bit; ``None`` is one launch.  A lane's shared
+memory does not grow with the group (each lane is its own cluster of
+blocks), so every group fits where one lane does
+(:func:`batched_group_size`).
 
 R is not a parameter of the solve: :func:`cluster_plan` picks it from the
 stack's size and what the card reports, and ``solve_stack(...,
@@ -153,6 +162,35 @@ def batched_feasible(s: int, d: int, k: int, prune: str = "none",
     del d
     return specs.get_profile(device).fits(smem_bytes(s, k, prune,
                                                      bound_block))
+
+
+def batched_group_size(m: int, s: int, d: int, k: int, prune: str = "none",
+                       device=None, *, budget: int | None = None) -> int:
+    """The most lanes one launch takes of an (m, s, d, k) stack: ``m`` when
+    one lane fits a block's shared memory (:func:`batched_feasible`; the
+    budget is ``device``'s profile, or ``budget`` bytes), else 0 (the
+    engines' fused fallback).  Unlike the reference's VMEM groups, a lane's
+    shared memory here does not grow with the group: each lane is its own
+    cluster of blocks, so a group of any size fits where one lane does."""
+    del d
+    if budget is None:
+        budget = specs.get_profile(device).smem_per_block
+    return m if smem_bytes(s, k, prune) <= budget else 0
+
+
+def lane_groups(m: int, group_t: int | None) -> list[tuple[int, int]]:
+    """The launches of an ``m``-lane stack at ``group_t`` lanes a launch:
+    ``[(lo, hi), ...]``, lanes [lo, hi) each, in lane order (``None``: one
+    launch of all of them)."""
+    if group_t is not None and (isinstance(group_t, bool)
+                                or not isinstance(group_t, int)
+                                or group_t < 1):
+        raise ValueError(f"group_t={group_t!r}: group sizes must be ints "
+                         f">= 1 (or None for one launch)")
+    t = m if group_t is None else min(group_t, m)
+    if t >= m:
+        return [(0, m)]
+    return [(lo, min(lo + t, m)) for lo in range(0, m, t)]
 
 
 def _scores(x, x2, c):
@@ -433,7 +471,8 @@ def solve_stack(subsets, centroids, weights=None, *, max_iters: int = 300,
                 tol: float = 1e-6, reseed_empty: bool = False,
                 prune: str = "none", bound_block: int | None = None,
                 count_as: str = "batched",
-                cluster: int | None = None) -> SolveOut:
+                cluster: int | None = None, group_t: int | None = None,
+                spec: specs.KernelSpec | None = None) -> SolveOut:
     """The kernel's function on a stack, from shared ``(k,d)`` or per-lane
     ``(M,k,d)`` seeds: the plain version for a CPU tensor, the kernel for a
     CUDA tensor (which raises when it cannot build or launch).  Both
@@ -442,9 +481,29 @@ def solve_stack(subsets, centroids, weights=None, *, max_iters: int = 300,
     ``launches`` (``"batched"``) or ``resident.launches`` (``"resident"``);
     an empty stack launches nothing.  ``cluster`` forces the blocks a
     lane's cluster has (default: :func:`cluster_plan`'s rule);
-    it changes no bit of the result."""
+    it changes no bit of the result.  ``group_t`` (default: ``spec``'s,
+    else ``None``) runs the stack as :func:`lane_groups`' launches, each
+    with its seeds and weights cut with its lanes; ``skips`` is summed over
+    them.  It changes no bit of the result either."""
     check_prune(prune)
     _check(subsets, centroids, weights)
+    if spec is not None:
+        spec = specs.coerce(spec)
+        if group_t is None:
+            group_t = spec.group_t
+    groups = lane_groups(subsets.shape[0], group_t)
+    if len(groups) > 1:
+        per_lane = centroids.dim() == 3
+        parts = [solve_stack(
+            subsets[lo:hi], centroids[lo:hi] if per_lane else centroids,
+            None if weights is None else weights[lo:hi],
+            max_iters=max_iters, tol=tol, reseed_empty=reseed_empty,
+            prune=prune, bound_block=bound_block, count_as=count_as,
+            cluster=cluster) for lo, hi in groups]
+        return SolveOut(*(torch.cat(f) for f in zip(*(p[:4] for p in parts))),
+                        torch.stack([p.skips for p in parts]).sum(0).to(
+                            torch.int32),
+                        torch.cat([p.passes for p in parts]))
     s, k = subsets.shape[1], centroids.shape[-2]
     if not batched_feasible(s, subsets.shape[2], k, prune, bound_block,
                             subsets.device):
@@ -469,7 +528,9 @@ def solve_stack(subsets, centroids, weights=None, *, max_iters: int = 300,
 
 
 def lloyd_solve_batched(subsets, centroids, weights=None, *,
+                        group_t: int | None = None,
                         max_iters: int = 300, tol: float = 1e-6,
+                        spec: specs.KernelSpec | None = None,
                         reseed_empty: bool = False, prune: str = "none",
                         bound_block: int | None = None,
                         return_skips: bool = False):
@@ -479,12 +540,14 @@ def lloyd_solve_batched(subsets, centroids, weights=None, *,
     (centroids (M,k,d) in the seeds' dtype, sse (M,) f32, iters (M,) i32,
     converged (M,) bool[, skips (max_iters,2) i32]).
 
-    Every lane is bit-for-bit the one-lane solve of
+    ``group_t`` lanes a launch (default: ``spec.group_t``, else the whole
+    stack) runs ceil(M / group_t) launches with the same result bit for
+    bit.  Every lane is bit-for-bit the one-lane solve of
     :func:`repro_torch.kernels.resident.lloyd_solve_resident` from its own
     seeds.  ``skips`` holds [lane-blocks skipped, lane-blocks live] per
     iteration, summed over lanes (zeros for ``prune="none"``).
     """
     out = solve_stack(subsets, centroids, weights, max_iters=max_iters,
                       tol=tol, reseed_empty=reseed_empty, prune=prune,
-                      bound_block=bound_block)
+                      bound_block=bound_block, group_t=group_t, spec=spec)
     return tuple(out[:5] if return_skips else out[:4])

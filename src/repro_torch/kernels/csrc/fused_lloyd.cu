@@ -16,14 +16,16 @@
 //
 // What the design does about it:
 //   * phase 1 (`assign_kernel`) is a register-blocked SIMT product: a block
-//     owns 128 points of one lane and walks all centroids in 128-wide tiles,
-//     each thread holding an 8x8 tile of scores in registers and folding it
-//     into a running (best, index) per row at the end of every centroid
-//     tile.  Centroids are scanned in increasing index and replaced only on
-//     a strict `<`; the 16 threads that share a row merge their candidates
-//     by (score, index), so the lowest index wins every tie, as in the
-//     reference.  Scores are ||c||^2 - 2 x.c; ||x||^2 is added back once
-//     per row at the end, mind = max(best + ||x||^2, 0).
+//     owns 128 points of one lane and walks all centroids in tiles of BN =
+//     64, 128 or 256 (KernelSpec.block_k, `bk`), each thread holding an
+//     8 x BN/16 tile of scores in registers and folding it into a running
+//     (best, index) per row at the end of every centroid tile; every BN
+//     gives the same bits (lloyd_device.cuh).  Centroids are scanned in
+//     increasing index and replaced only on a strict `<`; the 16 threads
+//     that share a row merge their candidates by (score, index), so the
+//     lowest index wins every tie, as in the reference.  Scores are
+//     ||c||^2 - 2 x.c; ||x||^2 is added back once per row at the end,
+//     mind = max(best + ||x||^2, 0).
 //   * the TPU kernel keeps the (k, d) accumulators resident in VMEM across
 //     its sequential grid.  Blocks here run in no order and one lane's
 //     accumulator (1024 x 64 f32 = 256 KB) exceeds a block's shared memory,
@@ -84,21 +86,23 @@ centroid_norms_kernel(const float* __restrict__ c,
     out[threadIdx.x] = lloyd::round_bf16(out[threadIdx.x]);
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(NT, 2)
+// BN: the centroid tile width (lloyd::score_blocks)
+template <bool BF16, int BN>
+__global__ void __launch_bounds__(NT, lloyd::score_blocks<BN>)
 assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
               const float* __restrict__ cn, const int* __restrict__ lanes,
               int S, int d, int k,
               int* __restrict__ labels, float* __restrict__ mind) {
-  __shared__ lloyd::ScoreTiles sm;
+  extern __shared__ __align__(16) unsigned char tiles[];
+  auto& sm = *reinterpret_cast<lloyd::ScoreTiles<BN>*>(tiles);
   const int g = blockIdx.y;
   const long long lane = lanes[g];
   const long long o = (long long)g * S;
-  lloyd::score_tile<false, BF16>(x + lane * S * (long long)d,
-                                 c + lane * k * (long long)d,
-                                 cn + (long long)g * k, S, d, k,
-                                 blockIdx.x * BM, sm, labels + o, mind + o,
-                                 nullptr, nullptr, nullptr, 0);
+  lloyd::score_tile<false, BF16, BN>(x + lane * S * (long long)d,
+                                     c + lane * k * (long long)d,
+                                     cn + (long long)g * k, S, d, k,
+                                     blockIdx.x * BM, sm, labels + o,
+                                     mind + o, nullptr, nullptr, nullptr, 0);
 }
 
 // sse[g] = sum_i w_i mind_i over lane lanes[g]: block_weighted_sum's
@@ -122,30 +126,35 @@ sse_kernel(const float* __restrict__ w, const int* __restrict__ lanes,
 // and mind, and takes no weights, chunk plan or workspaces.  Otherwise
 // segment_sums's chunk plan (C, chunks, segs) and workspaces (hist, seg,
 // start, order) come from the caller.  bn > 0 is the bfloat16 mode, the
-// accumulate's blocks bn rows.
+// accumulate's blocks bn rows.  bk is the score's centroid tile width (64,
+// 128 or 256; any other is cudaErrorInvalidValue and launches nothing).
 extern "C" int fused_lloyd(const float* x, const float* c, const float* w,
                            const int* lanes, int L, int S, int d, int k,
                            float* cn, int* labels, float* mind, int C,
                            int chunks, int segs, int* hist, int* seg,
                            int* start, int* order, float* sums,
                            float* counts, float* sse, int assign_only, int bn,
-                           void* stream_ptr) {
+                           int bk, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err;
   const bool bf16 = bn > 0;
+  if (!lloyd::tile_width_known(bk)) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
   centroid_norms_kernel<<<dim3((k + NORM_THREADS - 1) / NORM_THREADS, L),
                           NORM_THREADS, 0, stream>>>(
       c, lanes, k, d, (int)bf16, cn);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const dim3 grid((S + BM - 1) / BM, L);
-  if (bf16) {
-    assign_kernel<true><<<grid, NT, 0, stream>>>(x, c, cn, lanes, S, d, k,
-                                                 labels, mind);
-  } else {
-    assign_kernel<false><<<grid, NT, 0, stream>>>(x, c, cn, lanes, S, d, k,
-                                                  labels, mind);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = lloyd::with_tile_width(bk, bf16, [&](auto bw, auto bf) {
+    constexpr int BN = decltype(bw)::value;
+    constexpr bool BF = decltype(bf)::value;
+    const size_t smem = sizeof(lloyd::ScoreTiles<BN>);
+    cudaError_t e = lloyd::allow_smem(assign_kernel<BF, BN>, smem);
+    if (e != cudaSuccess) return e;
+    assign_kernel<BF, BN><<<grid, NT, smem, stream>>>(x, c, cn, lanes, S, d,
+                                                      k, labels, mind);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return (int)err;
   if (assign_only) return 0;
   if (bf16) {
     sse_kernel<true><<<L, SSE_THREADS, 0, stream>>>(w, lanes, mind, S, sse);

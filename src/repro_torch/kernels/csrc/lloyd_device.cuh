@@ -4,19 +4,27 @@
 // and the same per-cluster sums bit for bit.
 //
 //   * score_tile: one 128-point tile of a lane scored against all k
-//     centroids, register-blocked 8x8 per thread (256 threads), running
-//     (best, index) per row, lowest index on ties; optionally the second
-//     best score with the assigned column masked (the bound of
-//     prune="bounds").  The feature chunks are double-buffered: cp.async
-//     copies chunk s + 1 into one buffer while the FMAs of chunk s read the
-//     other, one barrier a chunk.  Each thread computes its copy sources
-//     once a tile and issues the next chunk's copies after the chunk's
-//     first FMA rounds, so that the warps leaving the barrier start on
-//     FMAs and not all at once on address arithmetic.  The barrier is a
-//     named one, so that two groups of 256 threads of one block (the
-//     whole-solve kernel's halves) can score two tiles each at its own
-//     pace.  Every score is still the sum over d in increasing order, so
-//     the pipeline changes no bit.
+//     centroids in tiles of BN centroids (KernelSpec.block_k: BN = 64, 128
+//     or 256; the whole-solve kernel uses 128), register-blocked 8 x BN/16
+//     per thread (256 threads), running (best, index) per row, lowest index
+//     on ties; optionally the second best score with the assigned column
+//     masked (the bound of prune="bounds").  BN changes which thread owns
+//     a column and how many columns a tile holds, nothing else: each score
+//     is the same sum over d in increasing order, each thread folds its
+//     columns in increasing index with a strict <, and the 16 column owners
+//     of a row merge by (score, index).  The best is therefore the lowest
+//     index of the least score, and the second best the second least of
+//     the multiset of scores, at every BN: labels, distances and SECOND's
+//     gaps are the same bits at every BN.  The feature chunks are
+//     double-buffered: cp.async copies chunk s + 1 into one buffer while
+//     the FMAs of chunk s read the other, one barrier a chunk.  Each
+//     thread computes its copy sources once a tile and issues the next
+//     chunk's copies after the chunk's first FMA rounds, so that the warps
+//     leaving the barrier start on FMAs and not all at once on address
+//     arithmetic.  The barrier is a named one, so that two groups of 256
+//     threads of one block (the whole-solve kernel's halves) can score two
+//     tiles each at its own pace.  Every score is still the sum over d in
+//     increasing order, so the pipeline changes no bit.
 //   * the steps of a lane's weighted per-cluster sums and counts from its
 //     labels (label_histogram, scan_counts, stable_scatter, cluster_sums):
 //     a stable counting sort, then one warp per cluster summing its points
@@ -46,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace lloyd {
 
 // v rounded to the nearest bfloat16 (ties to even), as a float
@@ -54,22 +64,35 @@ __device__ __forceinline__ float round_bf16(float v) {
 }
 
 constexpr int BM = 128;   // points per tile
-constexpr int BN = 128;   // centroids per tile
+constexpr int BN_SOLVE = 128;   // centroids per tile of the whole solve
 constexpr int BK = 16;    // feature chunk
 constexpr int TM = 8;     // rows per thread
-constexpr int TN = 8;     // columns per thread
-constexpr int NT = 256;   // threads of a scoring block, 16 x 16 8x8 tiles
+constexpr int NT = 256;   // threads of a scoring block, 16 x 16 thread tiles
 constexpr int PAD = 4;    // shared-row padding against bank conflicts
 constexpr int COPY_AT = 4;   // the next chunk's copies go out after this many
                              // of the chunk's 16 FMA rounds
 
-static_assert(BM == BN && NT == 256 && BK == 16 && (BM * BK) % NT == 0,
+static_assert(NT == 256 && BK == 16 && BM == 16 * TM,
               "stage_chunk maps thread (tx, ty) to column tx of rows ty + 16q");
+
+// the centroid tile widths the score kernels are built for
+// (KernelSpec.block_k; specs.BLOCK_KS lists the same)
+__host__ __device__ constexpr bool tile_width_known(int bn) {
+  return bn == 64 || bn == 128 || bn == 256;
+}
+
+// the blocks an SM must hold of a score kernel at tile width BN (its
+// __launch_bounds__): two leave 128 registers a thread, too few for the
+// 8 x 16 scores a thread holds at BN = 256, which gets one
+template <int BN>
+constexpr int score_blocks = BN > 128 ? 1 : 2;
 
 // two buffers of a feature chunk: point rows As[b][kk][r] and centroid
 // rows Bs[b][kk][c], transposed so that a thread reads its 8 rows and its
-// 8 columns as two float4 each
+// BN/16 columns as float4s
+template <int BN = BN_SOLVE>
 struct ScoreTiles {
+  static_assert(tile_width_known(BN), "no score kernel is built for this BN");
   __align__(16) float As[2][BK][BM + PAD];
   __align__(16) float Bs[2][BK][BN + PAD];
 };
@@ -100,15 +123,17 @@ __device__ __forceinline__ void group_sync(int id) {
 
 // Start copying feature chunk [d0, d0 + BK) of the tile's point rows and
 // of centroid rows [j0, j0 + BN) into buffer b: thread (tx, ty) of the
-// scoring group copies column d0 + tx of rows ty + 16q, q < 8, and zero
-// past every edge (the same elements, and the same zeros, as a plain load
-// would).  xa points at the thread's first point row (row arow = row0 +
-// ty) and cb at the lane's centroid row ty, both at column tx; a copy that
-// is masked off reads nothing, whatever its address.
+// scoring group copies column d0 + tx of point rows ty + 16q, q < BM/16,
+// and of centroid rows ty + 16q, q < BN/16, and zero past every edge (the
+// same elements, and the same zeros, as a plain load would).  xa points at
+// the thread's first point row (row arow = row0 + ty) and cb at the lane's
+// centroid row ty, both at column tx; a copy that is masked off reads
+// nothing, whatever its address.
+template <int BN>
 __device__ __forceinline__ void stage_chunk(const float* xa, const float* cb,
                                             int arow, int S, int d, int k,
-                                            int j0, int d0, ScoreTiles& sm,
-                                            int b) {
+                                            int j0, int d0,
+                                            ScoreTiles<BN>& sm, int b) {
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x % NT / 16;
   const bool cok = d0 + tx < d;
@@ -116,10 +141,12 @@ __device__ __forceinline__ void stage_chunk(const float* xa, const float* cb,
   const float* pa = xa + d0;
   const float* pb = cb + (long long)j0 * d + d0;
 #pragma unroll
-  for (int q = 0; q < BM / 16; ++q) {
+  for (int q = 0; q < (BM > BN ? BM : BN) / 16; ++q) {
     const int r = ty + 16 * q;
-    cp_async_f32(&sm.As[b][tx][r], pa + q * step, cok && arow + 16 * q < S);
-    cp_async_f32(&sm.Bs[b][tx][r], pb + q * step, cok && j0 + r < k);
+    if (q < BM / 16)
+      cp_async_f32(&sm.As[b][tx][r], pa + q * step, cok && arow + 16 * q < S);
+    if (q < BN / 16)
+      cp_async_f32(&sm.Bs[b][tx][r], pb + q * step, cok && j0 + r < k);
   }
 }
 
@@ -127,14 +154,15 @@ __device__ __forceinline__ void stage_chunk(const float* xa, const float* cb,
 // map: column tx of rows ty + 16q) to bfloat16, in place.  They are its own
 // copies, visible to it once cp_async_wait_all returns; the caller's
 // barrier then shows them to the group.
-__device__ __forceinline__ void round_chunk(ScoreTiles& sm, int b) {
+template <int BN>
+__device__ __forceinline__ void round_chunk(ScoreTiles<BN>& sm, int b) {
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x % NT / 16;
 #pragma unroll
-  for (int q = 0; q < BM / 16; ++q) {
+  for (int q = 0; q < (BM > BN ? BM : BN) / 16; ++q) {
     const int r = ty + 16 * q;
-    sm.As[b][tx][r] = round_bf16(sm.As[b][tx][r]);
-    sm.Bs[b][tx][r] = round_bf16(sm.Bs[b][tx][r]);
+    if (q < BM / 16) sm.As[b][tx][r] = round_bf16(sm.As[b][tx][r]);
+    if (q < BN / 16) sm.Bs[b][tx][r] = round_bf16(sm.Bs[b][tx][r]);
   }
 }
 
@@ -180,13 +208,17 @@ __device__ void centroid_norms(const float* cl, int k, int d, float* cn) {
 //                 bfloat16 in BF16 mode as the score reads them);
 //   gap[row]    = sqrt(max(second + ||x||^2, 0)) - sqrt(max(best + ||x||^2,
 //                 0)) where wl[row] > 0, +inf elsewhere (SECOND only).
-template <bool SECOND, bool BF16 = false>
+// BN: the centroids of a tile (ScoreTiles<BN>); a thread owns TN = BN/16
+// columns of each, tx TN to tx TN + TN - 1.
+template <bool SECOND, bool BF16 = false, int BN = BN_SOLVE>
 __device__ void score_tile(const float* __restrict__ xl, const float* cl,
                            const float* cn, int S, int d, int k, int row0,
-                           ScoreTiles& sm, int* labels, float* mind,
+                           ScoreTiles<BN>& sm, int* labels, float* mind,
                            float* gap, const float* wl, const int* skipb,
                            int bb, int bar = 0,
                            const float* __restrict__ xn = nullptr) {
+  constexpr int TN = BN / 16;
+  static_assert(TN % 4 == 0, "a thread reads its columns as float4s");
   const int tid = threadIdx.x % NT;
   const int tx = tid % 16;
   const int ty = tid / 16;
@@ -243,12 +275,17 @@ __device__ void score_tile(const float* __restrict__ xl, const float* cl,
           *reinterpret_cast<const float4*>(&sm.As[buf][kk][ty * TM]);
       const float4 a1 =
           *reinterpret_cast<const float4*>(&sm.As[buf][kk][ty * TM + 4]);
-      const float4 b0 =
-          *reinterpret_cast<const float4*>(&sm.Bs[buf][kk][tx * TN]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&sm.Bs[buf][kk][tx * TN + 4]);
       const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      float b[TN];
+#pragma unroll
+      for (int v = 0; v < TN / 4; ++v) {
+        const float4 bv = *reinterpret_cast<const float4*>(
+            &sm.Bs[buf][kk][tx * TN + 4 * v]);
+        b[4 * v] = bv.x;
+        b[4 * v + 1] = bv.y;
+        b[4 * v + 2] = bv.z;
+        b[4 * v + 3] = bv.w;
+      }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -474,6 +511,39 @@ __device__ void cluster_sums(const float* __restrict__ xl,
     }
     if (lid == 0) counts[j] = cnt;
   }
+}
+
+// Host side: call f(std::integral_constant<int, BN>, std::bool_constant<
+// BF16>) for the tile width bk (KernelSpec.block_k) and the bfloat16 flag,
+// so that each entry point instantiates every width and picks one at run
+// time.  A width no kernel is built for is cudaErrorInvalidValue: it never
+// becomes another width.
+template <typename F>
+cudaError_t with_tile_width(int bk, bool bf16, F&& f) {
+  auto pick = [&](auto bn) -> cudaError_t {
+    if (bf16) return f(bn, std::true_type{});
+    return f(bn, std::false_type{});
+  };
+  switch (bk) {
+    case 64:
+      return pick(std::integral_constant<int, 64>{});
+    case 128:
+      return pick(std::integral_constant<int, 128>{});
+    case 256:
+      return pick(std::integral_constant<int, 256>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory: past 48 KB (the
+// score tiles at BN = 256 are 50,176 bytes) a launch must opt in.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024 - 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 }  // namespace lloyd

@@ -257,7 +257,8 @@ struct RowSplit {
 // Words of dynamic shared memory that hold the score pass's tiles, or the
 // counting sort's start (k + 1) and cursor (k), whichever is larger.
 __host__ __device__ inline int tile_words(int k) {
-  const int tiles = (int)(GROUPS * sizeof(lloyd::ScoreTiles) / sizeof(int));
+  const int tiles =
+      (int)(GROUPS * sizeof(lloyd::ScoreTiles<>) / sizeof(int));
   return tiles > 2 * k + 1 ? tiles : 2 * k + 1;
 }
 
@@ -292,7 +293,8 @@ solve_kernel(const float* __restrict__ x, const float* __restrict__ c0,
   __shared__ Exchange ex;
   extern __shared__ __align__(16) int smem[];
   const int grp = threadIdx.x / NT;   // this thread's scoring group
-  lloyd::ScoreTiles& sm = reinterpret_cast<lloyd::ScoreTiles*>(smem)[grp];
+  lloyd::ScoreTiles<>& sm =
+      reinterpret_cast<lloyd::ScoreTiles<>*>(smem)[grp];
   int* start = smem;
   int* cursor = smem + k + 1;
   int* hist = smem + tile_words(k);

@@ -28,10 +28,15 @@
 // What the design does about it:
 //   * scoring is the fused pass's own device code (lloyd_device.cuh):
 //     centroid_norms and score_tile<false>, a block of 256 threads owning
-//     128 points and walking every centroid in 128-wide tiles with 8x8
+//     128 points and walking every centroid in tiles of BN = 64, 128 or
+//     256 (KernelSpec.block_k, `bk` of the entry points) with 8 x BN/16
 //     register blocking.  The assign's labels and distances are therefore
 //     the fused pass's bit for bit, at any k (k need not be a multiple of
-//     anything: the ragged tile is masked).
+//     anything: the ragged tile is masked) and at every BN.  The tiles are
+//     dynamic shared memory (50,176 bytes at BN = 256, past the 48 KB a
+//     launch gets without opting in); BN = 256 holds 8 x 16 scores a
+//     thread and takes one block an SM (__launch_bounds__(NT, 1)), so that
+//     they stay in registers.
 //   * the centroid update is a stable counting sort by label spread over
 //     the whole card, then one warp per (lane, cluster) summing its rows in
 //     point order: six launches on the caller's stream, in
@@ -102,17 +107,18 @@ norms_kernel(const float* __restrict__ c, const int* __restrict__ lanes,
 
 // xn: the points whose ||x||^2 the distances add back, as given (the bf16
 // mode passes x; nullptr: x, rounded in the bf16 mode)
-template <bool BF16>
-__global__ void __launch_bounds__(NT, 2)
+template <bool BF16, int BN>
+__global__ void __launch_bounds__(NT, lloyd::score_blocks<BN>)
 assign_kernel(const float* __restrict__ x, const float* __restrict__ xn,
               const float* __restrict__ c, const float* __restrict__ cn,
               const int* __restrict__ lanes, int S, int d, int k,
               int* __restrict__ labels, float* __restrict__ mind) {
-  __shared__ lloyd::ScoreTiles sm;
+  extern __shared__ __align__(16) unsigned char tiles[];
+  auto& sm = *reinterpret_cast<lloyd::ScoreTiles<BN>*>(tiles);
   const int g = blockIdx.y;
   const long long lane = lanes[g];
   const long long o = (long long)g * S;
-  lloyd::score_tile<false, BF16>(
+  lloyd::score_tile<false, BF16, BN>(
       x + lane * S * (long long)d, c + lane * k * (long long)d,
       cn + (long long)g * k, S, d, k, blockIdx.x * BM, sm, labels + o,
       mind + o, nullptr, nullptr, nullptr, 0, 0,
@@ -122,8 +128,8 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ xn,
 // new_mind is written by score_tile (the candidate minimum) and read back
 // after a barrier by other threads of the block: not __restrict__, so no
 // load of it goes through the non-coherent cache
-template <bool BF16>
-__global__ void __launch_bounds__(NT, 2)
+template <bool BF16, int BN>
+__global__ void __launch_bounds__(NT, lloyd::score_blocks<BN>)
 init_sweep_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   const float* __restrict__ cn,
                   const float* __restrict__ old_mind,
@@ -131,11 +137,12 @@ init_sweep_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   const float* __restrict__ psi_prev, float ell, int n, int d,
                   int nc, float* new_mind, unsigned char* __restrict__ sampled,
                   float* __restrict__ partial) {
-  __shared__ lloyd::ScoreTiles sm;
+  extern __shared__ __align__(16) unsigned char tiles[];
+  auto& sm = *reinterpret_cast<lloyd::ScoreTiles<BN>*>(tiles);
   __shared__ float red[NT];
   const int row0 = blockIdx.x * BM;
-  lloyd::score_tile<false, BF16>(x, c, cn, n, d, nc, row0, sm, nullptr,
-                                 new_mind, nullptr, nullptr, nullptr, 0);
+  lloyd::score_tile<false, BF16, BN>(x, c, cn, n, d, nc, row0, sm, nullptr,
+                                     new_mind, nullptr, nullptr, nullptr, 0);
   __syncthreads();
   const int row = row0 + threadIdx.x;
   if (threadIdx.x < BM && row < n) {
@@ -171,26 +178,31 @@ psi_kernel(const float* __restrict__ partial, int nb,
 }  // namespace
 
 // bf16 != 0: the bfloat16 score, the distances adding back ||x||^2 of the
-// points as given
+// points as given; bk: the centroid tile width (64, 128 or 256; any other
+// is cudaErrorInvalidValue and launches nothing)
 extern "C" int assign(const float* x, const float* c, const int* lanes,
-                      int L, int S, int d, int k, int bf16, float* cn,
-                      int* labels, float* mind, void* stream_ptr) {
+                      int L, int S, int d, int k, int bf16, int bk,
+                      float* cn, int* labels, float* mind,
+                      void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (!lloyd::tile_width_known(bk)) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   norms_kernel<<<dim3((k + NORM_THREADS - 1) / NORM_THREADS, L),
                  NORM_THREADS, 0, stream>>>(c, lanes, nullptr, k, d, bf16,
                                             cn);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const dim3 grid((S + BM - 1) / BM, L);
-  if (bf16) {
-    assign_kernel<true><<<grid, NT, 0, stream>>>(x, x, c, cn, lanes, S, d, k,
-                                                 labels, mind);
-  } else {
-    assign_kernel<false><<<grid, NT, 0, stream>>>(x, nullptr, c, cn, lanes,
-                                                  S, d, k, labels, mind);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return 0;
+  err = lloyd::with_tile_width(bk, bf16, [&](auto bn, auto bf) {
+    constexpr int BN = decltype(bn)::value;
+    constexpr bool BF = decltype(bf)::value;
+    const size_t smem = sizeof(lloyd::ScoreTiles<BN>);
+    cudaError_t e = lloyd::allow_smem(assign_kernel<BF, BN>, smem);
+    if (e != cudaSuccess) return e;
+    assign_kernel<BF, BN><<<grid, NT, smem, stream>>>(
+        x, BF ? x : nullptr, c, cn, lanes, S, d, k, labels, mind);
+    return cudaGetLastError();
+  });
+  return (int)err;
 }
 
 // The centroid update of the listed lanes: segment_sums's six passes, with
@@ -207,15 +219,17 @@ extern "C" int centroid_update(const float* x, const float* w,
                            static_cast<cudaStream_t>(stream_ptr));
 }
 
-// bf16 != 0: the bfloat16 score
+// bf16 != 0: the bfloat16 score; bk: the candidate tile width (64, 128 or
+// 256; any other is cudaErrorInvalidValue and launches nothing)
 extern "C" int init_sweep(const float* x, const float* c,
                           const unsigned char* valid,
                           const float* old_mind, const float* u,
                           const float* w, const float* psi_prev, float ell,
-                          int n, int d, int nc, int bf16, float* cn,
+                          int n, int d, int nc, int bf16, int bk, float* cn,
                           float* new_mind, unsigned char* sampled,
                           float* partial, float* psi, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (!lloyd::tile_width_known(bk)) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (nc > 0) {
     norms_kernel<<<dim3((nc + NORM_THREADS - 1) / NORM_THREADS, 1),
@@ -224,16 +238,18 @@ extern "C" int init_sweep(const float* x, const float* c,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   const int nb = (n + BM - 1) / BM;
-  if (bf16) {
-    init_sweep_kernel<true><<<nb, NT, 0, stream>>>(
+  err = lloyd::with_tile_width(bk, bf16, [&](auto bn, auto bf) {
+    constexpr int BN = decltype(bn)::value;
+    constexpr bool BF = decltype(bf)::value;
+    const size_t smem = sizeof(lloyd::ScoreTiles<BN>);
+    cudaError_t e = lloyd::allow_smem(init_sweep_kernel<BF, BN>, smem);
+    if (e != cudaSuccess) return e;
+    init_sweep_kernel<BF, BN><<<nb, NT, smem, stream>>>(
         x, c, cn, old_mind, u, w, psi_prev, ell, n, d, nc, new_mind, sampled,
         partial);
-  } else {
-    init_sweep_kernel<false><<<nb, NT, 0, stream>>>(
-        x, c, cn, old_mind, u, w, psi_prev, ell, n, d, nc, new_mind, sampled,
-        partial);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return (int)err;
   psi_kernel<<<1, PSI_THREADS, 0, stream>>>(partial, nb, psi);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return 0;

@@ -378,15 +378,34 @@ class ResidentEngine(FusedEngine):
 
 
 class BatchedEngine(ResidentEngine):
-    """The whole-solve kernel over a whole S2 stack in ONE launch, one
-    thread-block cluster per lane (``batch_resident.cluster_plan``), from
-    shared or per-lane seeds; each lane is bit-for-bit the ``resident``
-    solve.  A shape beyond the kernel's shared memory
+    """The whole-solve kernel over a whole S2 stack, one thread-block
+    cluster per lane (``batch_resident.cluster_plan``), from shared or
+    per-lane seeds; each lane is bit-for-bit the ``resident`` solve.  The
+    stack runs as ceil(M / t) launches of t lanes (``resolve_group_size``:
+    the tuning cache's ``group_t``, else t = M, one launch), with the same
+    result at every t.  A shape beyond the kernel's shared memory
     (``batch_resident.batched_feasible``) runs the fused engine's per-step
-    host loop over the whole stack instead, as the reference falls back.  Single solves (``solve``) are the resident
-    engine's."""
+    host loop over the whole stack instead, as the reference falls back.
+    Single solves (``solve``) are the resident engine's."""
 
     name = "batched"
+
+    def resolve_group_size(self, m: int, s: int, d: int, k: int, dtype,
+                           prune: str = "none", device=None) -> int:
+        """Lanes a launch for an (M, S, d, k) stack, 0 when one lane does
+        not fit (the fused fallback).  The cap is
+        ``batch_resident.batched_group_size`` (M, where one lane fits); the
+        tuning cache's ``group_t`` for the stack (``tuning.lookup_group_t``,
+        the ``|m<bucket>`` key on ``device``'s kind) is clamped to it, and
+        without an entry the whole stack is one launch."""
+        from repro_torch.kernels import batch_resident
+        from repro_torch.kernels import tuning    # deferred: tuning imports us
+        cap = batch_resident.batched_group_size(m, s, d, k, prune,
+                                                device=device)
+        if cap <= 0:
+            return 0
+        cached = tuning.lookup_group_t(s, d, k, m, dtype, device=device)
+        return min(cached, cap) if cached else cap
 
     def solve_batched(self, subsets, init_centroids, weights=None, *,
                       max_iters: int, tol: float, reseed_empty: bool = False,
@@ -395,13 +414,16 @@ class BatchedEngine(ResidentEngine):
         check_prune(prune)
         kw = dict(max_iters=max_iters, tol=tol, reseed_empty=reseed_empty,
                   prune=prune)
-        _, s, d = subsets.shape
-        if not batch_resident.batched_feasible(s, d, init_centroids.shape[-2],
-                                               prune=prune,
+        m, s, d = subsets.shape
+        k = init_centroids.shape[-2]
+        if not batch_resident.batched_feasible(s, d, k, prune=prune,
                                                device=subsets.device):
             return self._fused_loop(subsets, init_centroids, weights, **kw)
+        t = self.resolve_group_size(m, s, d, k, subsets.dtype, prune=prune,
+                                    device=subsets.device)
+        # an empty stack (t = 0) launches nothing either way
         return ops.lloyd_solve_batched(subsets, init_centroids, weights,
-                                       **kw)
+                                       group_t=t or None, **kw)
 
 
 register(EagerEngine())

@@ -25,6 +25,8 @@ reference's bf16 kernel: the score of ``ref.bf16_scores``, ``||x||^2`` of
 the rounded points, the SSE weighted by rounded weights, and the
 accumulate's partial sums over blocks of ``bn`` rows rounded
 (``ref.bf16_block_sums``, ``bn`` the spec's ``tile_shapes`` block).
+``spec.block_k`` picks the score pass's centroid tile
+(``specs.BLOCK_KS``), which changes no bit of the result.
 """
 from __future__ import annotations
 
@@ -173,7 +175,7 @@ def _kernel():
         fn = _build.load(SOURCE).fused_lloyd
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 4 + [i] * 4 + [p] * 3 + [i] * 3 + [p] * 7 + [
-            i, i, p]
+            i, i, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -235,7 +237,7 @@ def _launch(x, c, w, lanes, assign_only, return_labels, spec):
         err = fn(ptr(x), ptr(c), ptr(w), ptr(lanes), n_l, s, d,
                  k, ptr(cn), ptr(labels), ptr(mind), *plan, ptr(hist),
                  ptr(seg), ptr(start), ptr(order), *map(ptr, step),
-                 int(assign_only), bn, stream)
+                 int(assign_only), bn, spec.block_k, stream)
     if err != 0:
         raise RuntimeError(f"fused_lloyd kernel launch failed with CUDA "
                            f"error {err}")

@@ -25,6 +25,8 @@ Points and candidates may be float32 or bfloat16.  ``spec``
 reference's bf16 kernel: the score of ``ref.bf16_scores`` against the
 candidates' norms as given (``+inf`` for invalid ones), and ``||x||^2`` of
 the rounded points added back; the rest of the round is float32.
+``spec.block_k`` picks the kernel's candidate tile (``specs.BLOCK_KS``),
+which changes no bit of the result.
 """
 from __future__ import annotations
 
@@ -105,7 +107,7 @@ def _kernel():
         from repro_torch.kernels import _build
         fn = _build.load(SOURCE).init_sweep
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [ctypes.c_float] + [i] * 4 + [p] * 6
+        fn.argtypes = [p] * 7 + [ctypes.c_float] + [i] * 5 + [p] * 6
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -139,7 +141,7 @@ def _launch(x, c, old_mind, u, pp, ell, w, valid, spec):
                         None if valid is None else valid.data_ptr(),
                         old_mind.data_ptr(), u.data_ptr(), w.data_ptr(),
                         pp.data_ptr(), ell, n, d, nc, int(spec.bf16),
-                        cn.data_ptr(),
+                        spec.block_k, cn.data_ptr(),
                         new_mind.data_ptr(), sampled.data_ptr(),
                         partial.data_ptr(), psi.data_ptr(), stream)
     if err != 0:

@@ -21,6 +21,9 @@ bit-for-bit the exact solve's.
 from __future__ import annotations
 
 DEFAULT_BOUND_BLOCK = 256   # target point-block rows for bound-gated pruning
+# the most rows of a lane the whole-solve kernel indexes: its row indices
+# are 32-bit, and a tile's rows reach S rounded up to 128 plus 128
+MAX_LANE_ROWS = 2 ** 31 - 256
 
 # Kernel launches since the last reset; only the CUDA path counts.
 launches = 0
@@ -61,6 +64,45 @@ def resident_feasible(n: int, d: int, k: int, prune: str = "none",
     return batch_resident.batched_feasible(n, d, k, prune=prune,
                                            bound_block=bound_block,
                                            device=device)
+
+
+def resident_smem_bytes(n: int, d: int, k: int,
+                        prune: str = "none") -> int:
+    """Shared memory one block of the whole-solve kernel needs for a solve
+    of ``n`` points against ``k`` centroids (``batch_resident.smem_bytes``:
+    the score tiles or the counting sort's state, the norms or the
+    histogram, and under ``prune="bounds"`` one skip flag per pruning
+    block), the counterpart of the reference's ``resident_vmem_bytes``.
+    ``d`` does not enter: the score pass walks it in chunks, and the points
+    and the (k, d) sums live in device memory."""
+    from repro_torch.kernels import batch_resident
+    del d
+    return batch_resident.smem_bytes(n, k, check_prune(prune))
+
+
+def max_resident_points(d: int, k: int, prune: str = "none", device=None,
+                        *, budget: int | None = None) -> int:
+    """The largest subset size ``n`` such that a whole solve of every
+    ``n' <= n`` points against ``k`` centroids fits one block's shared
+    memory (``budget`` bytes, else ``device``'s profile), 0 when none does:
+    the counterpart of the reference's S2 sizing knob.  With
+    ``prune="none"`` ``n`` does not enter the kernel's shared memory, so
+    the answer is ``MAX_LANE_ROWS``, the most rows the kernel indexes (32-bit
+    row indices), or 0.  With ``prune="bounds"`` each pruning block takes a
+    flag; the blocks are priced at their smallest, 8 rows (for example a
+    multiple of 8 whose eighth is prime), so that every smaller subset fits
+    too."""
+    from repro_torch.kernels import batch_resident, specs
+    check_prune(prune)
+    del d
+    if budget is None:
+        budget = specs.get_profile(device).smem_per_block
+    room = budget - batch_resident.smem_bytes(0, k)
+    if room < 0:
+        return 0
+    if prune == "none":
+        return MAX_LANE_ROWS
+    return min(MAX_LANE_ROWS, 8 * (room // 4))
 
 
 def lloyd_solve_resident(points, centroids, weights=None, *,

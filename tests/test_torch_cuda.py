@@ -10,7 +10,10 @@ repeat launches bit-identical; the bf16 kernels (``KernelSpec(acc_dtype=
 resident == the fused engine's loop bit for bit; the serving tier (every
 bucket of ``BucketPolicy()`` bit for bit the unpadded launch, a refresh on
 ``fused`` the one on ``twopass``, ``tuned`` with an empty tuning cache the
-``resident`` engine).  Marked ``cuda``; skips without a card.
+``resident`` engine); every score tile width (``KernelSpec.block_k``) bit
+for bit the default's, and the whole solve in groups of lanes
+(``group_t``) bit for bit one launch.  Marked ``cuda``; skips without a
+card.
 Run on a machine with one (no JAX needed, so without the JAX conftest):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -965,3 +968,44 @@ def test_tuned_without_a_cache_entry_is_resident_bit_for_bit(
     cs = c.expand(x.shape[0], -1, -1).contiguous()
     step = engine.get_engine("tuned").step(x, cs, w)
     assert _same(step, fused.fused_lloyd(x, cs, w, spec=bf16))
+
+
+@pytest.mark.parametrize("acc", ["float32", "bfloat16"])
+def test_every_block_k_is_the_default_tile_bit_for_bit(card, acc):
+    # the ragged stack (k = 130, d = 17: ragged tiles at every width, an
+    # exact tie, an empty cluster) and one init sweep against 100 candidates
+    x, c, w = _ragged(card)
+    base = specs.KernelSpec(acc_dtype=acc)
+    counts = (fused.launches, assign.launches, init.launches)
+
+    def outputs(sp):
+        u = torch.rand(x.shape[1], generator=torch.Generator(card)
+                       .manual_seed(5), device=card)
+        return (*fused.fused_lloyd(x, c, w, spec=sp, return_labels=True),
+                *fused.fused_lloyd(x, c, spec=sp, assign_only=True),
+                *assign.assign(x, c, spec=sp),
+                *init.init_sweep(x[0], c[0, :100], torch.full(
+                    (x.shape[1],), torch.inf, device=card), u, 1.0,
+                    ell=200.0, spec=sp))
+
+    want = outputs(base)
+    for bk in specs.BLOCK_KS:
+        assert _same(outputs(base.replace(block_k=bk)), want), bk
+    assert (fused.launches, assign.launches, init.launches) == (
+        counts[0] + 2 * (1 + len(specs.BLOCK_KS)),
+        counts[1] + 1 + len(specs.BLOCK_KS),
+        counts[2] + 1 + len(specs.BLOCK_KS))
+    with pytest.raises(ValueError, match="built for block_k in"):
+        assign.assign(x, c, spec=base.replace(block_k=96))
+
+
+def test_grouped_whole_solve_is_one_launch_bit_for_bit(card):
+    x, c, w = _solve_stack(card)
+    m = x.shape[0]
+    want = batch_resident.lloyd_solve_batched(x, c, w, return_skips=True,
+                                              **KW)
+    before = batch_resident.launches
+    got = batch_resident.lloyd_solve_batched(x, c, w, group_t=3,
+                                             return_skips=True, **KW)
+    assert batch_resident.launches - before == -(-m // 3)
+    assert _same(got, want)

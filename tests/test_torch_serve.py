@@ -366,12 +366,13 @@ def test_tuned_engine_without_an_entry_is_resident(monkeypatch, tmp_path):
 
 
 def test_tuned_engine_refuses_a_spec_no_kernel_reads(monkeypatch, tmp_path):
-    _seed_cache(monkeypatch, tmp_path, specs.KernelSpec(block_k=64))
+    # a block_k the reference accepts but no score kernel is built for
+    _seed_cache(monkeypatch, tmp_path, specs.KernelSpec(block_k=96))
     tuned = engine.get_engine("tuned")
     x, c = _stack()
-    with pytest.raises(ValueError, match="block_n and acc_dtype only"):
+    with pytest.raises(ValueError, match="built for block_k in"):
         tuned.step(x, c)
-    with pytest.raises(ValueError, match="block_n and acc_dtype only"):
+    with pytest.raises(ValueError, match="built for block_k in"):
         tuned.solve(x[0], c[0], max_iters=5, tol=1e-6)
 
 

@@ -14,6 +14,7 @@ import torch
 
 from repro.core import io_model as jio
 from repro.kernels import specs as jspecs
+from repro.kernels import tuning as jtuning
 from repro_torch.core import io_model
 from repro_torch.kernels import batch_resident, centroid_update, specs
 
@@ -67,12 +68,21 @@ def test_defaults_and_coerce():
                          ids=["block_k=64", "block_k=256", "group_t=1",
                               "group_t=4"])
 def test_coerce_refuses_fields_no_kernel_reads(unread):
-    # a valid spec for the reference, but no port kernel reads these fields
+    # the score kernels are built for every block_k of the reference's
+    # BLOCK_KS, and only the whole solve reads group_t: these specs pass
     spec = specs.KernelSpec(acc_dtype="bfloat16", **unread)
     jspecs.KernelSpec(acc_dtype="bfloat16", **unread)
+    assert specs.BLOCK_KS == jtuning.BLOCK_KS
     for default in (specs.DEFAULT_SPEC, specs.UPDATE_DEFAULT_SPEC):
-        with pytest.raises(ValueError, match="block_n and acc_dtype only"):
-            specs.coerce(spec, default=default)
+        assert specs.coerce(spec, default=default) is spec
+    # a valid reference spec whose block_k no kernel is built for raises
+    for bk in (96, 512):
+        odd = spec.replace(block_k=bk)
+        jspecs.KernelSpec(acc_dtype="bfloat16", **dict(unread, block_k=bk))
+        for default in (specs.DEFAULT_SPEC, specs.UPDATE_DEFAULT_SPEC):
+            with pytest.raises(ValueError,
+                               match=r"built for block_k in \(64, 128, 256\)"):
+                specs.coerce(odd, default=default)
     # block_n is read: any valid one passes
     wide = specs.KernelSpec(block_n=1024, acc_dtype="bfloat16")
     assert specs.coerce(wide) is wide
