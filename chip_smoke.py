@@ -157,7 +157,15 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      a trip) against the single-process job, and one trip of it against
      one single-process trip; each rank's stage times, launches,
      collectives and bytes by stage, and peak memory;
- 17. a ``{"kernels": [...]}`` line (the six kernels, their bf16
+ 17. [dryrun]: the dry run (``launch/kmeans_dryrun.py``: fake CUDA
+     tensors as rank 0 of a fake world, the kernels' shape-only routes) at
+     [dist]'s shape on a fake world of 4 ranks, its collectives by stage
+     against [dist]'s rank 0 (S1, S3 and the flat S2 equal; PKMeans and
+     the pod S2 per trip; k-means|| calls per sweep), with no byte
+     allocated on the card and no kernel launched; then the production dry
+     run (16x16, ``batched`` with the reseed; ``--pods 2``) in a
+     subprocess, each record's roofline terms, S2 with no collective;
+ 18. a ``{"kernels": [...]}`` line (the six kernels, their bf16
      variants and [tune]'s tile-width variants; ``launches_by_path`` with
      the distributed paths), the
      card's line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -169,7 +177,9 @@ exits non-zero at once.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -427,9 +437,9 @@ def step_bound_ms(n_lanes: int, s: int, d: int, k: int):
     """Least time for one fused step on these shapes: the larger of the f32
     operations (2*S*k*d per lane, the score product) over the f32 peak and
     the bytes (points, centroids and weights read once, sums, counts and
-    sse written once) over the memory rate."""
-    return bound_ms(2.0 * n_lanes * s * k * d,
-                    4.0 * n_lanes * (s * d + k * d + s + k * d + k + 1))
+    sse written once) over the memory rate (``fused.work``)."""
+    from repro_torch.kernels import fused
+    return bound_ms(*fused.work(n_lanes, s, d, k))
 
 
 def mixture(gen, n: int, d: int, k: int, device):
@@ -641,10 +651,10 @@ def solve_bound_ms(s: int, d: int, k: int, n_lanes: int, passes: int,
     reseed passes and final pass, less the rows of skipped pruning blocks)
     over the f32 peak, and the bytes (points, weights and seeds read once;
     centroids, sse, iters, converged and the skip counters written once)
-    over the memory rate."""
-    return bound_ms(2.0 * k * d * (s * passes - skipped_rows),
-                    4.0 * (n_lanes * (s * d + s + k * d + 3) + k * d
-                           + 2 * max(max_iters, 1)))
+    over the memory rate (``batch_resident.work``)."""
+    from repro_torch.kernels import batch_resident
+    return bound_ms(*batch_resident.work(n_lanes, s, d, k, passes,
+                                         skipped_rows, max_iters))
 
 
 def compare_solve(tag, got, want, torch) -> tuple[bool, float]:
@@ -1808,8 +1818,7 @@ def phase_assign(torch, report: dict):
                             warmup=1)
     lib_ms = cuda_time_ms(lambda: library_scores(x1[0], c1[0]), reps=2,
                           warmup=1)
-    bound, by = bound_ms(2.0 * n1 * k1 * D,
-                              4.0 * (n1 * D + k1 * D) + 8.0 * n1)
+    bound, by = bound_ms(*assign.work(1, n1, D, k1))
     print(f"[assign] one lane {n1}x{D}, k={k1}: kernel {ms:.4f} ms "
           f"({2.0 * n1 * k1 * D / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
           f"version {plain_ms:.4f} ms, library yardstick {lib_ms:.4f} ms, "
@@ -1986,14 +1995,12 @@ def phase_update(torch, report: dict, main: dict, big) -> bool:
         subsets, lab, masks, K, lanes), reps=2, warmup=1)
     lib_ms = cuda_time_ms(lambda: library_update(subsets, lab, masks, K),
                           reps=5, warmup=1)
-    bound, by = bound_ms(2.0 * m * s * d,
-                         4.0 * (m * s * d + 2 * m * s + m * K * d + m * K))
+    bound, by = bound_ms(*centroid_update.work(m, s, d, K))
     big_ms = cuda_time_ms(lambda: centroid_update.centroid_update(
         x1, lab1, w1, k1), reps=20)
     big_lib_ms = cuda_time_ms(lambda: library_update(x1, lab1, w1, k1),
                               reps=5, warmup=1)
-    big_bound, _ = bound_ms(2.0 * n1 * D,
-                            4.0 * (n1 * (D + 2) + k1 * (D + 1)))
+    big_bound, _ = bound_ms(*centroid_update.work(1, n1, D, k1))
     skew_ms = cuda_time_ms(lambda: centroid_update.centroid_update(
         xs1, labs, w1, k1), reps=3, warmup=1)
     valid = (labs >= 0) & (labs < k1)
@@ -2002,8 +2009,8 @@ def phase_update(torch, report: dict, main: dict, big) -> bool:
     # carry weight 0
     skew_lib_ms = cuda_time_ms(lambda: library_update(
         xs1, labs.clamp(0, k1 - 1), w1 * valid, k1), reps=3, warmup=1)
-    skew_bound, _ = bound_ms(2.0 * n_valid * D,
-                             4.0 * (n_valid * D + 2 * n1 + k1 * (D + 1)))
+    skew_bound, _ = bound_ms(*centroid_update.work(1, n1, D, k1,
+                                                   rows=n_valid))
     passes = {tag: pass_times(torch, fn) for tag, fn in (
         ("main stack", lambda: centroid_update.centroid_update(
             subsets, lab, masks, K)),
@@ -2103,8 +2110,7 @@ def phase_init(torch, report: dict, main: dict) -> bool:
     plain_ms = cuda_time_ms(lambda: ref.init_sweep_ref(
         x, cands, m0, u, psi0, ell=ell, weights=w), reps=2, warmup=1)
     lib_ms = cuda_time_ms(lambda: library_scores(x, cands), reps=2, warmup=1)
-    bound, by = bound_ms(2.0 * n * nc * D,
-                              4.0 * (n * D + nc * D + 3 * n + n + 1) + n)
+    bound, by = bound_ms(*init.work(n, D, nc))
     print(f"[init] sweep {n}x{D} against {nc} candidates: kernel {ms:.4f} ms "
           f"({2.0 * n * nc * D / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
           f"version {plain_ms:.4f} ms, library yardstick (scores and row "
@@ -2704,6 +2710,7 @@ def phase_pkmeans(torch, report: dict, assign_rep: dict, update_rep: dict,
     whole lane for PK_FULL_TRIPS trips, with one fused step, and whole
     jobs on ``fused`` and ``batched`` bit for bit the ``twopass`` job."""
     from repro_torch.core import KMeansParams
+    from repro_torch.kernels import assign, centroid_update
     from repro_torch.kernels import engine as engines
     dev = torch.device("cuda")
     x, init = main["x"], main["init"]
@@ -2730,8 +2737,8 @@ def phase_pkmeans(torch, report: dict, assign_rep: dict, update_rep: dict,
     twopass, fused_engine = (engines.get_engine(b) for b in
                              ("twopass", "fused"))
     trip_ms = cuda_time_ms(lambda: twopass.step(x1, c1), reps=3, warmup=1)
-    a_bound, a_by = bound_ms(2.0 * N * K * D, 4.0 * (N * D + K * D + 2 * N))
-    u_bound, u_by = bound_ms(0.0, 4.0 * (N * D + 2 * N + K * D + K))
+    a_bound, a_by = bound_ms(*assign.work(1, N, D, K))
+    u_bound, u_by = bound_ms(*centroid_update.work(1, N, D, K))
     print(f"[pkmeans] one twopass trip {N}x{D}, k={K}: {trip_ms:.4f} ms "
           f"against a bound of {a_bound:.4f} ms ({a_by}) + {u_bound:.4f} ms "
           f"({u_by}); the job's {secs * 1e3 / max(iters, 1):.4f} ms a trip "
@@ -3368,33 +3375,28 @@ def phase_bf16(torch, main: dict):
 
     # times: each bf16 kernel beside the f32 kernel on the same inputs
     n_l, s, d = subsets.shape
-    flops = 2.0 * n_l * s * K * d
-    step_bytes = 4.0 * n_l * (s * d + K * d + s + K * d + K + 1)
     jobs = {
         "fused_lloyd": (lambda sp: fused.fused_lloyd(subsets, cents, w,
                                                      spec=sp),
                         lambda: fused.fused_lloyd_plain(subsets, cents, w,
                                                         spec=spec),
-                        flops, step_bytes, err_s, diff_f),
+                        *fused.work(n_l, s, d, K), err_s, diff_f),
         "assign": (lambda sp: assign.assign(subsets, cents, spec=sp),
                    lambda: assign.assign_plain(subsets, cents, lanes, spec),
-                   flops, 4.0 * n_l * (s * d + K * d + 2 * s), err_a,
-                   diff_a),
+                   *assign.work(n_l, s, d, K), err_a, diff_a),
         "centroid_update": (
             lambda sp: centroid_update.centroid_update(
                 subsets, asg[0], w, K, spec=None if sp is None else
                 upd_spec),
             lambda: centroid_update.centroid_update_plain(
                 subsets, asg[0], w, K, lanes, upd_spec),
-            2.0 * n_l * s * d, 4.0 * n_l * (s * d + 2 * s + K * d + K),
-            err_u, 0),
+            *centroid_update.work(n_l, s, d, K), err_u, 0),
         "init_sweep": (
             lambda sp: init.init_sweep(x, cands, old, u, psi0, ell=2.0 * K,
                                        spec=sp),
             lambda: init.init_sweep_plain(x, cands, old, u, psi0,
                                           ell=2.0 * K, spec=spec),
-            2.0 * n * INIT_C * d, 4.0 * (n * d + INIT_C * d + 3 * n + n + 1)
-            + n, err_i, diff_i),
+            *init.work(n, d, INIT_C), err_i, diff_i),
     }
     launched = {"fused_lloyd": counts["fused_lloyd"],
                 "assign": counts["assign"],
@@ -3594,7 +3596,7 @@ def plain_int8ef(torch, slices, masks, init, max_iters: int, tol: float):
     return c, iters
 
 
-def phase_dist(torch, reports: dict, main: dict) -> bool:
+def phase_dist(torch, reports: dict, main: dict) -> dict | None:
     """[dist]: the distributed pipeline on DIST_RANKS ranks (NCCL with a
     card a rank where the machine has that many, else gloo on cuda:0,
     every collective through host memory), at the main path's size: the
@@ -3611,7 +3613,7 @@ def phase_dist(torch, reports: dict, main: dict) -> bool:
     job with the same settings, and one trip of it against one
     single-process trip (centroids within PK_RTOL of max(|c|, 1)).  Per
     rank: stage times, launches, collectives and bytes by stage, peak
-    memory."""
+    memory.  -> rank 0's records by path, ``None`` when a check failed."""
     from repro_torch.core import IPKMeansConfig, KMeansParams, ipkmeans
     from repro_torch.core import init as seeding
     from repro_torch.core import pkmeans
@@ -3815,6 +3817,129 @@ def phase_dist(torch, reports: dict, main: dict) -> bool:
           f"world {wall:.1f} s)", flush=True)
     if not ok:
         print("[dist] FAIL", flush=True)
+        return None
+    return outs[0]
+
+
+def _stage(rec: dict, name: str) -> dict:
+    return rec["comm_by_stage"].get(name, {"calls": 0, "bytes": 0})
+
+
+def _dist_stage(run: dict, name: str) -> dict:
+    return run["comm"].get(name, {"calls": 0, "bytes": 0})
+
+
+def phase_dryrun(torch, dist: dict) -> bool:
+    """[dryrun] (after [dist]): the dry run (``launch/kmeans_dryrun.py``)
+    at [dist]'s shape on a fake world of DIST_RANKS ranks, its (4,) mesh
+    and its (2, 2) pod mesh, in this process: the collectives by stage
+    against those [dist]'s rank 0 recorded in this call: S1, S3 and the
+    flat S2 equal; PKMeans and the pod S2 per trip (the pod S2's bytes per
+    lane-trip, its final SSE reduction beside them); the sharded k-means||
+    calls per sweep (its drawn rows' bytes are the data's).  Then the
+    production dry run (16x16, ``batched`` with the reseed and the
+    k-means|| round; the eager baseline with ``--pods 2``) in a subprocess,
+    its records' roofline terms printed and S2's collectives 0.  Nothing of
+    it may allocate on the card or launch a kernel."""
+    from repro_torch.launch import kmeans_dryrun as kd
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "experiments" / "dryrun_torch_smoke"
+    torch.cuda.synchronize()
+    mem0, counts0 = torch.cuda.memory_allocated(), read_counts()
+    shape = kd.Shape(n=N, d=D, k=K, m=M, max_iters=MAX_ITERS)
+    kw = dict(mesh_shape=(DIST_RANKS,), shape=shape, pods=2,
+              out_dir=out_dir / "dist_shape", verbose=False)
+    t0 = time.perf_counter()
+    a = {r["arch"][7:]: r for r in kd.lower_all(
+        False, "eager", reduce="exact", xpod_pack="scatter", **kw)}
+    b = {r["arch"][7:]: r for r in kd.lower_all(
+        False, "twopass", reduce="int8ef", init_round=True, **kw)}
+    traced_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    quiet = (torch.cuda.memory_allocated() == mem0
+             and read_counts() == counts0)
+    m_loc = M // (DIST_RANKS // 2)
+    checks = {}
+    flat = dist["flat"]
+    checks["flat s1"] = (_stage(a["ipkmeans-s1"], "s1")
+                         == _dist_stage(flat, "s1"))
+    for rec in (a, b):
+        checks["flat s2 (none)"] = checks.get("flat s2 (none)", True) and (
+            _stage(rec["ipkmeans-s2s3"], "s2") == _dist_stage(flat, "s2")
+            == {"calls": 0, "bytes": 0})
+        checks["flat s3"] = checks.get("flat s3", True) and (
+            _stage(rec["ipkmeans-s2s3"], "s3") == _dist_stage(flat, "s3"))
+    pk = dist["pkmeans"]
+    trip = _stage(b["pkmeans-iter"], "pkmeans")
+    checks["pkmeans a trip"] = _dist_stage(pk, "pkmeans") == {
+        "calls": pk["iters"] * trip["calls"],
+        "bytes": pk["iters"] * trip["bytes"]}
+    for name, rec in (("exact", a["ipkmeans-s2-xpod2-exact"]),
+                      ("int8ef", b["ipkmeans-s2-xpod2-int8ef"])):
+        run = dist[f"pod {name}"]
+        iters = run["subset_iters"][:m_loc]
+        trips, lane_trips = int(iters.max()), int(iters.sum())
+        one, fin = _stage(rec, "s2"), _stage(rec, "s2-sse")
+        got = _dist_stage(run, "s2")
+        checks[f"pod {name} s2 a trip"] = got == {
+            "calls": trips * one["calls"] + fin["calls"],
+            "bytes": lane_trips * one["bytes"] // m_loc + fin["bytes"]}
+        checks[f"pod {name} s3"] = _stage(rec, "s3") == _dist_stage(run, "s3")
+    checks["pod s1"] = (_stage(a["ipkmeans-s1-xpod2"], "s1")
+                        == _dist_stage(dist["pod exact"], "s1"))
+    kp = dist["kmeans||"]
+    sweeps = len(kp["psi"])
+    rnd = _stage(b["ipkmeans-init-round"], "init")
+    checks["kmeans|| calls a sweep"] = (
+        _dist_stage(kp, "other")["calls"] == sweeps * rnd["calls"] + 1)
+    print(f"[dryrun] [dist]'s shape on fake worlds of {DIST_RANKS} ranks, "
+          f"(4,) and (2, 2) meshes: {len(a) + len(b)} cells traced in "
+          f"{traced_s:.1f} s; against [dist]'s rank 0: "
+          + ", ".join(f"{k} {v}" for k, v in checks.items())
+          + f"; the k-means|| sweeps' bytes "
+          f"{_dist_stage(kp, 'other')['bytes']} ([dist], the drawn rows the "
+          f"data's) against the model's "
+          f"{sweeps * rnd['bytes']} + the candidate masses; card memory and "
+          f"launch counts unchanged {quiet}", flush=True)
+    for name, run in (("flat", flat), ("pod exact", dist["pod exact"]),
+                      ("pod int8ef", dist["pod int8ef"]), ("pkmeans", pk),
+                      ("kmeans||", kp)):
+        print(f"[dryrun] [dist] {name} collectives by stage: "
+              f"{json.dumps(run['comm'])}", flush=True)
+    for rec in (*a.values(), *b.values()):
+        print(f"[dryrun] dist shape {rec['arch']} {rec['mesh']}: "
+              f"{json.dumps(rec['comm_by_stage'])}", flush=True)
+    ok = quiet and all(checks.values())
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    shutil.rmtree(out_dir / "production", ignore_errors=True)
+    for args in (["--backend", "batched", "--reseed-empty", "--init"],
+                 ["--init", "--pods", "2"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.kmeans_dryrun", *args,
+             "--out-dir", str(out_dir / "production")], env=env,
+            capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"[dryrun] production {' '.join(args)}: {line}",
+                  flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:], flush=True)
+            ok = False
+        print(f"[dryrun] production {' '.join(args)}: exit "
+              f"{proc.returncode} in {secs:.1f} s", flush=True)
+    recs = [json.loads(f.read_text())
+            for f in sorted((out_dir / "production").glob("*.json"))]
+    s2 = [r["collectives_in_solver_loop"] for r in recs
+          if r["arch"] == "kmeans-ipkmeans-s2s3"]
+    s2_ok = len(s2) == 2 and s2 == [0, 0]
+    print(f"[dryrun] production: {len(recs)} records; S2's collectives "
+          f"{s2} (zero {s2_ok}); the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    ok = ok and s2_ok
+    if not ok:
+        print("[dryrun] FAIL", flush=True)
     return ok
 
 
@@ -3905,9 +4030,12 @@ def main() -> int:
     bf16 = phase_bf16(torch, main_run)
     if bf16 is None:
         return fail("bfloat16 carry and bf16-accumulate kernels")
-    if not phase_dist(torch, {r["name"]: r for r in (
-            report, batched, assign_rep, update_rep, init_rep)}, main_run):
+    dist = phase_dist(torch, {r["name"]: r for r in (
+        report, batched, assign_rep, update_rep, init_rep)}, main_run)
+    if dist is None:
         return fail("distributed pipeline")
+    if not phase_dryrun(torch, dist):
+        return fail("dry run")
     variants = [{"name": r["name"] + "[bf16]", "route": r["route"],
                  "source": r["source"], "replaces": r["replaces"],
                  **bf16[r["name"]]}

@@ -472,9 +472,8 @@ def _gather_results(res: KMeansResult, grp) -> KMeansResult:
     out, off = [], 0
     for t in fields:
         nb = t.numel() * t.element_size()
-        blocks = [every[r, off:off + nb].clone().view(t.dtype).reshape(t.shape)
-                  for r in range(every.shape[0])]
-        out.append(torch.cat(blocks))
+        rows = every[:, off:off + nb].contiguous().view(t.dtype)
+        out.append(rows.reshape((-1,) + tuple(t.shape[1:])))
         off += nb
     return KMeansResult(*out)
 
@@ -503,15 +502,35 @@ def _s2_cross_pod_solve(sub: torch.Tensor, msk: torch.Tensor,
     """
     params = cfg.kmeans
     engine = engines.get_engine(params.backend)
-    m_loc, _, d = sub.shape
+    m_loc = sub.shape[0]
     x = sub.float()
     w = msk.float()
     c0 = init_centroids.float()
+    c, iters, conv = engine.lloyd_loop(
+        x, c0, w, max_iters=params.max_iters, tol=params.tol,
+        reduce=cross_pod_reduce(cfg, c0, m_loc, grp))
+    # the final scoring pass at the converged centroids, like engine.solve
+    both = comm.all_reduce(torch.cat([engine.sse(x, c, w),
+                                      torch.sum(w, dim=1)]), grp)
+    sse, cnt = both[:m_loc], both[m_loc:]
+    asse = torch.where(cnt > 0.0, sse / torch.clamp(cnt, min=1.0), torch.inf)
+    return c, sse, asse, iters, conv
+
+
+def cross_pod_reduce(cfg: IPKMeansConfig, c0: torch.Tensor, m_loc: int,
+                     grp):
+    """The ``reduce`` hook of ``LloydEngine.lloyd_loop`` for the cross-pod
+    S2 of ``m_loc`` lanes from the f32 seeds ``c0 (k, d)``:
+    ``cfg.reduce``'s reduction of a trip's (sums, counts) over the pod
+    group ``grp`` (``_s2_cross_pod_solve`` says how), carrying the int8ef
+    residual of every lane from trip to trip."""
+    params = cfg.kmeans
+    d = c0.shape[-1]
     residual = compress.init_ef({"sums": c0.expand(m_loc, -1, -1),
                                  "counts": c0[:, 0].expand(m_loc, -1)}
                                 ).residual
     axes = {"sums": -1, "counts": -1}
-    sqrt_d = torch.sqrt(torch.tensor(float(d), device=sub.device))
+    sqrt_d = torch.sqrt(torch.tensor(float(d), device=c0.device))
 
     def exact(sums, counts, sel):
         buf = comm.all_reduce(torch.cat([sums.reshape(-1),
@@ -540,15 +559,7 @@ def _s2_cross_pod_solve(sub: torch.Tensor, msk: torch.Tensor,
         floor = sqrt_d * torch.amax(noise, dim=-1)
         return red["sums"], cnt, torch.clamp(floor, min=params.tol)
 
-    c, iters, conv = engine.lloyd_loop(
-        x, c0, w, max_iters=params.max_iters, tol=params.tol,
-        reduce=int8ef if cfg.reduce == "int8ef" else exact)
-    # the final scoring pass at the converged centroids, like engine.solve
-    both = comm.all_reduce(torch.cat([engine.sse(x, c, w),
-                                      torch.sum(w, dim=1)]), grp)
-    sse, cnt = both[:m_loc], both[m_loc:]
-    asse = torch.where(cnt > 0.0, sse / torch.clamp(cnt, min=1.0), torch.inf)
-    return c, sse, asse, iters, conv
+    return int8ef if cfg.reduce == "int8ef" else exact
 
 
 def ipkmeans_distributed(points, init_centroids, cfg: IPKMeansConfig, mesh,

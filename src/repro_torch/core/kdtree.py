@@ -43,6 +43,15 @@ def _lexsort(coord: torch.Tensor, region: torch.Tensor) -> torch.Tensor:
     return o1[o2]
 
 
+def _counts(ids: torch.Tensor, num: int) -> torch.Tensor:
+    """How many of ``ids`` (int64, each in ``[0, num)``) take each value:
+    ``torch.bincount(ids, minlength=num)``, with a length fixed by ``num``
+    (so a fake tensor in the dry run has it too) and no read of the largest
+    id back to the host."""
+    return torch.zeros(num, dtype=torch.int64, device=ids.device
+                       ).scatter_add_(0, ids, torch.ones_like(ids))
+
+
 def _segment_rank(sort_primary: torch.Tensor, order: torch.Tensor,
                   num_segments: int):
     """Given a permutation ``order`` that sorts by (segment, key), return for
@@ -50,7 +59,7 @@ def _segment_rank(sort_primary: torch.Tensor, order: torch.Tensor,
     size."""
     n = sort_primary.shape[0]
     sorted_seg = sort_primary[order].long()
-    counts = torch.bincount(sort_primary.long(), minlength=num_segments)
+    counts = _counts(sort_primary.long(), num_segments)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(n, device=order.device) - starts[sorted_seg]
     return sorted_seg, rank, counts[sorted_seg]
@@ -311,7 +320,7 @@ def label_regions_histogram_sharded(points, region_ids: torch.Tensor,
     nb = num_regions * _LABEL_BUCKETS
     b = _region_buckets(x[:, label_axis], region, num_regions, grp)
     rb = region * _LABEL_BUCKETS + b.long()
-    hist, pref = comm.exclusive_scan(torch.bincount(rb, minlength=nb), grp)
+    hist, pref = comm.exclusive_scan(_counts(rb, nb), grp)
     hist = hist.view(num_regions, _LABEL_BUCKETS)
     base = (torch.cumsum(hist, dim=1) - hist).reshape(-1)   # (a)
     # (b) is pref; (c):

@@ -64,6 +64,22 @@ def pkmeans(points, init_centroids, mask=None,
     return PKMeansResult(final, total, iters[0], conv[0])
 
 
+def stats_all_reduce(grp):
+    """The ``reduce`` hook of ``LloydEngine.lloyd_loop`` for PKMeans on a
+    mesh: ONE all-reduce of a trip's (sums, counts) over ``grp``, K * d + K
+    floats a lane (stage "pkmeans" in ``distributed.comm``)."""
+
+    def all_reduce(sums, counts, sel):
+        k, d = sums.shape[-2:]
+        with comm.stage("pkmeans"):
+            buf = comm.all_reduce(torch.cat([sums.reshape(-1),
+                                             counts.reshape(-1)]), grp)
+        return (buf[:k * d].view(sums.shape), buf[k * d:].view(counts.shape),
+                None)
+
+    return all_reduce
+
+
 def pkmeans_sharded(mesh, axis_names: tuple[str, ...],
                     params: KMeansParams = KMeansParams()):
     """PKMeans with the points in row blocks over the mesh axes
@@ -91,14 +107,7 @@ def pkmeans_sharded(mesh, axis_names: tuple[str, ...],
     axes = tuple(axis_names)
     grp = comm.group(mesh, axes)
     rows = sharding.s1_point_spec(axes, None)
-
-    def all_reduce(sums, counts, sel):
-        k, d = sums.shape[-2:]
-        with comm.stage("pkmeans"):
-            buf = comm.all_reduce(torch.cat([sums.reshape(-1),
-                                             counts.reshape(-1)]), grp)
-        return (buf[:k * d].view(sums.shape), buf[k * d:].view(counts.shape),
-                None)
+    all_reduce = stats_all_reduce(grp)
 
     def solve(points, init_centroids, mask=None, *,
               device=None) -> PKMeansResult:

@@ -2,9 +2,10 @@
 
 Every entry point takes ``device=``.  Left out, it means the first CUDA
 card, and the call raises when there is none: the port never carries on
-quietly on the CPU.  ``device="cpu"`` runs the plain PyTorch versions of the
-kernels, as the tests do.  Inputs keep their dtype, float32 or bfloat16
-(``as_float``), as the reference's do.
+quietly on the CPU (under a ``FakeTensorMode`` it is a fake card instead,
+which the dry run traces on).  ``device="cpu"`` runs the plain PyTorch
+versions of the kernels, as the tests do.  Inputs keep their dtype, float32
+or bfloat16 (``as_float``), as the reference's do.
 """
 from __future__ import annotations
 
@@ -13,17 +14,30 @@ import torch
 
 
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
+    """``device`` as a ``torch.device`` (``None``: CUDA).  CUDA on a host
+    without a card raises, except while a ``FakeTensorMode`` is active (the
+    dry run, ``launch/kmeans_dryrun.py``): there it is the fake card
+    ``cuda:0``, whose tensors hold no memory."""
     if device is None:
         if not torch.cuda.is_available():
+            if _fake_mode():
+                return torch.device("cuda", 0)
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch versions of the kernels on the CPU")
         return torch.device("cuda")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
+        if _fake_mode():
+            return torch.device("cuda", 0 if dev.index is None else dev.index)
         raise RuntimeError(f"device {str(dev)!r} asked for, but no CUDA "
                            f"device is available")
     return dev
+
+
+def _fake_mode() -> bool:
+    from torch._guards import detect_fake_mode
+    return detect_fake_mode() is not None
 
 
 # the float dtypes the port carries as they are, as the reference keeps its

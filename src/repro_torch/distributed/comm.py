@@ -11,6 +11,10 @@ Every call adds one to its stage's count, and the bytes this rank hands to
 the collective (its input tensor) to the stage's bytes, as the kernel
 wrappers count their launches: ``stage("s2")`` names the stage of the calls
 inside it; ``reset()`` sets every count to 0 and ``read()`` returns them.
+``kinds`` counts the same calls by collective ("all-reduce",
+"all-gather", "all-to-all", the reference's HLO names) with the bytes of
+each call's result, which for an all-gather is the group size times its
+input (the dry run's ``collective_bytes``).
 ``reset(timed=True)`` also adds each stage block's wall time to
 ``seconds`` (host clock, the card's queue drained at both ends of the
 block): a measurement's switch, off by default, so the solvers' stages add
@@ -31,6 +35,8 @@ import torch.distributed as dist
 
 # stage -> {"calls": n, "bytes": b} since the last reset (this process)
 counts: dict[str, dict[str, int]] = {}
+# collective -> {"calls": n, "bytes": result bytes} since the last reset
+kinds: dict[str, dict[str, int]] = {}
 # stage -> seconds spent inside stage() blocks since reset(timed=True)
 seconds: dict[str, float] = {}
 _stages: list[str] = ["other"]
@@ -67,6 +73,7 @@ def reset(timed: bool = False) -> None:
     """Every count to 0; ``timed``: time the stage blocks from now on."""
     global _timed
     counts.clear()
+    kinds.clear()
     seconds.clear()
     _timed = timed
 
@@ -75,10 +82,13 @@ def read() -> dict[str, dict[str, int]]:
     return {k: dict(v) for k, v in counts.items()}
 
 
-def _count(t: torch.Tensor) -> None:
-    c = counts.setdefault(_stages[-1], {"calls": 0, "bytes": 0})
-    c["calls"] += 1
-    c["bytes"] += t.numel() * t.element_size()
+def _count(t: torch.Tensor, kind: str, factor: int = 1) -> None:
+    nbytes = t.numel() * t.element_size()
+    for table, key, b in ((counts, _stages[-1], nbytes),
+                          (kinds, kind, factor * nbytes)):
+        c = table.setdefault(key, {"calls": 0, "bytes": 0})
+        c["calls"] += 1
+        c["bytes"] += b
 
 
 def group(mesh, axes):
@@ -121,7 +131,7 @@ def _back(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def all_reduce(t: torch.Tensor, grp=None, op: str = "sum") -> torch.Tensor:
     """``op`` ("sum" | "min" | "max") of ``t`` over the group's ranks."""
-    _count(t)
+    _count(t, "all-reduce")
     w = _wire(t, grp)
     if w is t:
         w = t.clone()
@@ -132,7 +142,7 @@ def all_reduce(t: torch.Tensor, grp=None, op: str = "sum") -> torch.Tensor:
 def all_gather(t: torch.Tensor, grp=None) -> torch.Tensor:
     """Every rank's ``t`` (one shape on all) stacked in group-rank order ->
     ``(P, *t.shape)``."""
-    _count(t)
+    _count(t, "all-gather", size(grp))
     w = _wire(t, grp)
     out = torch.empty(size(grp) * w.numel(), dtype=w.dtype, device=w.device)
     dist.all_gather_into_tensor(out, w.reshape(-1), group=grp)
@@ -155,7 +165,7 @@ def all_gather_ragged(t: torch.Tensor, grp=None) -> list[torch.Tensor]:
 def all_to_all_single(t: torch.Tensor, grp=None) -> torch.Tensor:
     """Block ``j`` of ``t``'s dim 0 goes to group rank ``j``; the result
     holds the blocks received, in group-rank order (equal blocks)."""
-    _count(t)
+    _count(t, "all-to-all")
     w = _wire(t, grp)
     out = torch.empty_like(w)
     dist.all_to_all_single(out, w, group=grp)
@@ -163,7 +173,23 @@ def all_to_all_single(t: torch.Tensor, grp=None) -> torch.Tensor:
 
 
 def exclusive_scan(t: torch.Tensor, grp=None):
-    """-> ``(total, below)``: the sum of ``t`` over the group's ranks, and
-    over the ranks below this one (zeros on rank 0), from one all-gather."""
-    every = all_gather(t, grp)
-    return torch.sum(every, dim=0), torch.sum(every[:index(grp)], dim=0)
+    """-> ``(total, below)``: the sum of an integer tensor ``t`` over the
+    group's ranks, and over the ranks below this one (zeros on rank 0).
+
+    Rank ``j`` sums the ``j``-th of ``P`` slices of ``t``: one all-to-all
+    brings it every rank's slice ``j``, it takes their running sums over
+    the ranks, a second all-to-all hands each rank its prefixes, and an
+    all-gather the slices' totals.  Each of the three moves ``t``'s bytes a
+    rank (an all-gather of the whole of ``t`` would move ``P`` times them,
+    8.6 GB a rank for the labeler's histogram at 256 ranks).  Integer sums
+    take no order, so the result is exact."""
+    p = size(grp)
+    flat = t.reshape(-1)
+    n = flat.numel()
+    per = -(-n // p)
+    blocks = torch.cat([flat, flat.new_zeros(per * p - n)]).view(p, per)
+    mine = all_to_all_single(blocks, grp)       # row r: rank r's slice
+    total = all_gather(torch.sum(mine, dim=0), grp)
+    below = all_to_all_single(torch.cumsum(mine, dim=0) - mine, grp)
+    return (total.reshape(-1)[:n].view(t.shape),
+            below.reshape(-1)[:n].view(t.shape))

@@ -27,7 +27,12 @@ KMEANS_POD_AXIS = "pods"      # the slow (cross-host) axis of a pod mesh
 KMEANS_DATA_AXIS = "data"     # the fast in-pod axis: shards the subset dim
 
 
-def _mesh(shape: tuple[int, ...], names: tuple[str, ...], device_type):
+def make_mesh(shape: tuple[int, ...], names: tuple[str, ...],
+              device_type=None):
+    """A ``DeviceMesh`` of ``shape`` with axes ``names`` over the whole
+    world, ranks in row-major order.  ``device_type`` defaults to the
+    backend's: ``"cuda"`` under NCCL, else ``"cpu"`` (gloo, and the fake
+    world of the dry run)."""
     if not dist.is_initialized():
         raise RuntimeError("a k-means mesh needs an initialised process "
                            "group (distributed/world.py starts one)")
@@ -53,15 +58,15 @@ def kmeans_pod_mesh(pods: int, devices_per_pod: int, device_type=None):
     if pods < 1 or devices_per_pod < 1:
         raise ValueError(f"pods={pods} x devices_per_pod={devices_per_pod} "
                          f"must both be >= 1")
-    return _mesh((pods, devices_per_pod), (KMEANS_POD_AXIS, KMEANS_DATA_AXIS),
-                 device_type)
+    return make_mesh((pods, devices_per_pod),
+                     (KMEANS_POD_AXIS, KMEANS_DATA_AXIS), device_type)
 
 
 def kmeans_data_mesh(devices: int, device_type=None):
     """The flat ``(devices,)`` mesh, its one axis named ``"data"``."""
     if devices < 1:
         raise ValueError(f"devices={devices} must be >= 1")
-    return _mesh((devices,), (KMEANS_DATA_AXIS,), device_type)
+    return make_mesh((devices,), (KMEANS_DATA_AXIS,), device_type)
 
 
 def axis_size(mesh, axes) -> int:

@@ -18,10 +18,16 @@ Devices: ``device="cpu"`` puts every rank on the CPU, on gloo, with one
 torch thread each; ``"cuda"`` gives rank ``r`` the card ``cuda:{r % count}``,
 on NCCL when every rank has a card of its own and on gloo (collectives
 through host memory, ``comm``) when ranks share one (``pick_backend``).
+
+``fake(P)`` is a world of another kind, for the dry run
+(``launch/kmeans_dryrun.py``): ``P`` ranks in this one process, which is
+rank 0, on torch's fake backend, whose collectives take fake tensors and
+move nothing.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import importlib
 import importlib.util
@@ -142,6 +148,27 @@ def start(fn, world_size: int, *, args=(), device: str = "cuda",
 def run(fn, world_size: int, **kw) -> list:
     """``start(...).join()``: the ranks' results in rank order."""
     return start(fn, world_size, **kw).join()
+
+
+@contextlib.contextmanager
+def fake(world_size: int):
+    """A fake world of ``world_size`` ranks for the block: this process is
+    rank 0 of a process group on the ``"fake"`` backend (torch's
+    ``FakeProcessGroup``: every collective completes at once and moves
+    nothing), so a ``DeviceMesh`` of any shape can be made over it.  The
+    group is destroyed when the block ends, by an error or not; a process
+    that already has a group raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("this process already belongs to a process "
+                           "group; a fake world needs its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _load(target):

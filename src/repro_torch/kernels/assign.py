@@ -28,12 +28,21 @@ import ctypes
 import torch
 
 from repro_torch.kernels import fused, ref, specs
+from repro_torch.kernels import work as work_
 from repro_torch.kernels.fused import AssignOut
 
 # Kernel launches since the last reset; only the CUDA path counts.
 launches = 0
 
 SOURCE = "sweeps.cu"
+
+
+def work(lanes: int, s: int, d: int, k: int) -> work_.Work:
+    """One launch over ``lanes`` lanes of ``s`` rows against ``k``
+    centroids a lane: the fused pass's assign-only mode (2 s k d f32
+    operations a lane; points and centroids read, labels and distances
+    written)."""
+    return fused.work(lanes, s, d, k, assign_only=True)
 
 
 def assign_plain(x, c, lanes, spec=None) -> AssignOut:
@@ -71,7 +80,7 @@ def _kernel():
     return _fn
 
 
-def _launch(x, c, lanes, spec) -> AssignOut:
+def _launch(x, c, lanes, spec, shape_only=False) -> AssignOut:
     global launches
     _, s, d = x.shape
     k = c.shape[1]
@@ -89,6 +98,9 @@ def _launch(x, c, lanes, spec) -> AssignOut:
     if n_l == 0 or s == 0:
         return out
     cn = torch.empty((n_l, k), dtype=torch.float32, device=dev)
+    if shape_only:
+        work_.record("assign", work(n_l, s, d, k))
+        return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel()(x.data_ptr(), c.data_ptr(), lanes.data_ptr(), n_l,
@@ -110,7 +122,8 @@ def assign(points, centroids, lanes=None, *, spec=None) -> AssignOut:
     (M,k,d)``, ``lanes (L,)`` int32 (all lanes when ``None``) ->
     ``AssignOut(labels (L,S), mind (L,S))``, row ``g`` for lane
     ``lanes[g]``.  ``spec``: the kernel's ``KernelSpec`` (``DEFAULT_SPEC``
-    when ``None``).
+    when ``None``).  A fake or meta tensor takes the shape-only route
+    (``kernels/work.py``).
     """
     spec = specs.coerce(spec)
     if points.dim() == 2:
@@ -122,9 +135,13 @@ def assign(points, centroids, lanes=None, *, spec=None) -> AssignOut:
         lanes = torch.arange(points.shape[0], dtype=torch.int32,
                              device=points.device)
     fused._check(points, centroids, None, lanes, True, what="assign")
+    if work_.is_fake(points):
+        return _launch(points, centroids, lanes, spec, True)
     if points.device.type == "cpu":
         return assign_plain(points, centroids, lanes, spec)
-    if points.device.type != "cuda":
-        raise ValueError(f"assign runs on cuda or cpu, not "
-                         f"{points.device.type}")
-    return _launch(points, centroids, lanes, spec)
+    if points.device.type == "cuda":
+        return _launch(points, centroids, lanes, spec)
+    if points.is_meta:
+        return _launch(points, centroids, lanes, spec, True)
+    raise ValueError(f"assign runs on cuda or cpu, not "
+                     f"{points.device.type}")

@@ -58,6 +58,7 @@ import torch
 
 from repro_torch.device import FLOAT_DTYPES
 from repro_torch.kernels import ref, specs
+from repro_torch.kernels import work as work_
 from repro_torch.kernels.resident import bound_block_rows, check_prune
 
 # Kernel launches since the last reset; only the CUDA path counts.
@@ -151,6 +152,22 @@ class ClusterPlan(NamedTuple):
     rows: list             # the r + 1 row boundaries (cluster_rows)
     clusters: int          # clusters of r blocks the card holds at once
     fits: dict             # clusters the card holds at once, per size
+
+
+def work(lanes: int, s: int, d: int, k: int, passes: int,
+         skipped_rows: int = 0, max_iters: int = 1,
+         per_lane_seeds: bool = False) -> work_.Work:
+    """One launch of the whole-solve kernel over ``lanes`` lanes of ``s``
+    rows: 2 k d f32 operations for each row of each score pass it ran
+    (``passes`` summed over the lanes: trips, reseed passes and final
+    passes), less the ``skipped_rows`` of pruned blocks; the points,
+    weights and seeds (one ``(k, d)`` block, or one a lane) read once, the
+    centroids, SSE, iterations, convergence flags and the ``(max_iters,
+    2)`` skip counters written once."""
+    seeds = (lanes if per_lane_seeds else 1) * k * d
+    return work_.Work(2.0 * k * d * (s * passes - skipped_rows),
+                      work_.F32 * (lanes * (s * d + s + k * d + 3) + seeds
+                                   + 2 * max(max_iters, 1)))
 
 
 def batched_feasible(s: int, d: int, k: int, prune: str = "none",
@@ -386,7 +403,7 @@ def cluster_plan(m: int, s: int, k: int, prune: str = "none",
 
 
 def _launch(x, c0, w, *, max_iters, tol, reseed_empty, prune, bound_block,
-            count_as, cluster) -> SolveOut:
+            count_as, cluster, shape_only=False) -> SolveOut:
     global launches
     m, s, d = x.shape
     k = c0.shape[-2]
@@ -418,6 +435,13 @@ def _launch(x, c0, w, *, max_iters, tol, reseed_empty, prune, bound_block,
     gap = f32(m, s) if nb else None
     margin = f32(m, nb) if nb else None
     dacc = f32(m, nb) if nb else None
+
+    if shape_only:
+        # the dry run counts one score pass a lane (the reference's cost
+        # analysis counts a loop's body once)
+        work_.record(f"lloyd_solve_{count_as}", work(
+            m, s, d, k, m, max_iters=max_iters, per_lane_seeds=bool(stride)))
+        return SolveOut(c.to(carry), sse, iters, conv.bool(), skips, passes)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -484,7 +508,9 @@ def solve_stack(subsets, centroids, weights=None, *, max_iters: int = 300,
     it changes no bit of the result.  ``group_t`` (default: ``spec``'s,
     else ``None``) runs the stack as :func:`lane_groups`' launches, each
     with its seeds and weights cut with its lanes; ``skips`` is summed over
-    them.  It changes no bit of the result either."""
+    them.  It changes no bit of the result either.  A fake or meta tensor
+    takes the shape-only route (``kernels/work.py``): the kernel's outputs
+    and workspaces, one score pass a lane counted, nothing launched."""
     check_prune(prune)
     _check(subsets, centroids, weights)
     if spec is not None:
@@ -515,16 +541,21 @@ def solve_stack(subsets, centroids, weights=None, *, max_iters: int = 300,
                          f"k)")
     kw = dict(max_iters=max_iters, tol=tol, reseed_empty=reseed_empty,
               prune=prune, bound_block=bound_block)
-    if subsets.device.type == "cpu":
-        return lloyd_solve_plain(subsets, centroids, weights, **kw)
-    if subsets.device.type != "cuda":
-        raise ValueError(f"the whole-solve kernel runs on cuda or cpu, not "
-                         f"{subsets.device.type}")
+    shape_only = work_.is_fake(subsets)
+    if not shape_only:
+        if subsets.device.type == "cpu":
+            return lloyd_solve_plain(subsets, centroids, weights, **kw)
+        if subsets.device.type != "cuda":
+            if not subsets.is_meta:
+                raise ValueError(f"the whole-solve kernel runs on cuda or "
+                                 f"cpu, not {subsets.device.type}")
+            shape_only = True
     if weights is None:
         weights = torch.ones(subsets.shape[:2], dtype=torch.float32,
                              device=subsets.device)
     return _launch(subsets, centroids.contiguous(), weights,
-                   count_as=count_as, cluster=cluster, **kw)
+                   count_as=count_as, cluster=cluster, shape_only=shape_only,
+                   **kw)
 
 
 def lloyd_solve_batched(subsets, centroids, weights=None, *,

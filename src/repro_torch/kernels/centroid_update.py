@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref, specs
+from repro_torch.kernels import work as work_
 
 # Kernel launches since the last reset; only the CUDA path counts.
 launches = 0
@@ -75,6 +76,18 @@ def chunk_plan(n_lanes: int, s: int, sms: int,
                          f"multiple of 32 rows")
     chunks = max(1, -(-s // rows))
     return ChunkPlan(rows, chunks, -(-chunks // CHUNK_SEG))
+
+
+def work(lanes: int, s: int, d: int, k: int,
+         rows: int | None = None) -> work_.Work:
+    """One launch over ``lanes`` lanes of ``s`` rows and ``k`` clusters: 2 d
+    f32 operations (a multiply and an add) for each of the ``rows`` rows
+    whose label is in range (default all, ``lanes * s``), whose points are
+    read; the labels and weights of every row read, the sums and counts
+    written."""
+    rows = lanes * s if rows is None else rows
+    return work_.Work(2.0 * rows * d, work_.F32 * (
+        rows * d + 2 * lanes * s + lanes * k * d + lanes * k))
 
 
 def check_k(k: int, what: str, device=None):
@@ -184,7 +197,7 @@ def _kernel():
     return _fn
 
 
-def _launch(x, labels, w, k, lanes, chunk_rows, spec):
+def _launch(x, labels, w, k, lanes, chunk_rows, spec, shape_only=False):
     global launches
     _, s, d = x.shape
     n_l = lanes.numel()
@@ -202,6 +215,9 @@ def _launch(x, labels, w, k, lanes, chunk_rows, spec):
         return sums, counts
     if s == 0:
         return sums.zero_(), counts.zero_()
+    if shape_only:
+        work_.record("centroid_update", work(n_l, s, d, k))
+        return sums, counts
     plan, hist, seg, start, order = workspaces(n_l, s, k, dev, chunk_rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -239,7 +255,8 @@ def centroid_update(points, labels, weights, k: int, lanes=None, *,
     changes no bit.  k is at most the card's shared memory per block over
     4 (58,112 on the H100): the histogram and scatter passes keep k counts
     in one block's shared memory.  ``spec``: the kernel's ``KernelSpec``
-    (``UPDATE_DEFAULT_SPEC`` when ``None``).
+    (``UPDATE_DEFAULT_SPEC`` when ``None``).  A fake or meta tensor takes
+    the shape-only route (``kernels/work.py``), which counts every row.
     """
     k = int(k)
     spec = specs.coerce(spec, default=specs.UPDATE_DEFAULT_SPEC)
@@ -255,9 +272,15 @@ def centroid_update(points, labels, weights, k: int, lanes=None, *,
         lanes = torch.arange(points.shape[0], dtype=torch.int32,
                              device=points.device)
     _check(points, labels, weights, k, lanes)
+    if work_.is_fake(points):
+        return _launch(points, labels, weights, k, lanes, chunk_rows, spec,
+                       True)
     if points.device.type == "cpu":
         return centroid_update_plain(points, labels, weights, k, lanes, spec)
-    if points.device.type != "cuda":
-        raise ValueError(f"the centroid update runs on cuda or cpu, not "
-                         f"{points.device.type}")
-    return _launch(points, labels, weights, k, lanes, chunk_rows, spec)
+    if points.device.type == "cuda":
+        return _launch(points, labels, weights, k, lanes, chunk_rows, spec)
+    if points.is_meta:
+        return _launch(points, labels, weights, k, lanes, chunk_rows, spec,
+                       True)
+    raise ValueError(f"the centroid update runs on cuda or cpu, not "
+                     f"{points.device.type}")

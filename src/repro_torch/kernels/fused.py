@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref, specs
+from repro_torch.kernels import work as work_
 from repro_torch.kernels.ref import PLAIN_SCORE_ELEMS
 
 # Kernel launches since the last reset; only the CUDA path counts.
@@ -67,6 +68,23 @@ def _step_out(sums, counts, sse, labels, mind, return_labels):
     if return_labels:
         return StepLabelsOut(sums, counts, sse, labels, mind)
     return StepOut(sums, counts, sse)
+
+
+def work(lanes: int, s: int, d: int, k: int, *, assign_only: bool = False,
+         return_labels: bool = False) -> work_.Work:
+    """One launch over ``lanes`` lanes of ``s`` rows against ``k``
+    centroids a lane: 2 s k d f32 operations a lane (the score product);
+    the points and the lane's centroids read, then either the labels and
+    distances written (``assign_only``) or the weights read and the sums,
+    counts and SSE written (and with ``return_labels`` the labels and
+    distances too)."""
+    ops = 2.0 * lanes * s * k * d
+    read = lanes * (s * d + k * d)
+    labels = 2 * lanes * s
+    if assign_only:
+        return work_.Work(ops, work_.F32 * (read + labels))
+    out = lanes * (k * d + k + 1) + (labels if return_labels else 0)
+    return work_.Work(ops, work_.F32 * (read + lanes * s + out))
 
 
 def _check(x, c, w, lanes, assign_only, what="the fused pass"):
@@ -181,7 +199,8 @@ def _kernel():
     return _fn
 
 
-def _launch(x, c, w, lanes, assign_only, return_labels, spec):
+def _launch(x, c, w, lanes, assign_only, return_labels, spec,
+            shape_only=False):
     global launches
     from repro_torch.kernels import centroid_update
     m, s, d = x.shape
@@ -216,6 +235,11 @@ def _launch(x, c, w, lanes, assign_only, return_labels, spec):
         if not assign_only:
             for t in out[:3]:
                 t.zero_()
+        return out
+    if shape_only:
+        work_.record("fused_lloyd", work(
+            n_l, s, d, k, assign_only=assign_only,
+            return_labels=return_labels))
         return out
     # the assign-only mode takes no chunk plan, workspaces or step outputs
     plan, hist, seg, start, order = (0, 0, 0), None, None, None, None
@@ -262,7 +286,8 @@ def fused_lloyd(x, c, w=None, lanes=None, *, assign_only=False,
     kernel's ``KernelSpec`` (``DEFAULT_SPEC`` when ``None``; with
     ``acc_dtype="bfloat16"``, the bf16 kernel of the module docstring).
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel,
-    and a build or launch failure raises.  The step's k is at most the
+    and a build or launch failure raises; a fake or meta tensor takes the
+    shape-only route (``kernels/work.py``).  The step's k is at most the
     card's shared memory per block over 4 (58,112 on the H100: the
     accumulate keeps k counts in one block's shared memory; the assign-only
     mode has no such limit).
@@ -271,10 +296,14 @@ def fused_lloyd(x, c, w=None, lanes=None, *, assign_only=False,
     if lanes is None:
         lanes = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
     _check(x, c, w, lanes, assign_only)
+    if work_.is_fake(x):
+        return _launch(x, c, w, lanes, assign_only, return_labels, spec, True)
     if x.device.type == "cpu":
         return fused_lloyd_plain(x, c, w, lanes, assign_only=assign_only,
                                  return_labels=return_labels, spec=spec)
-    if x.device.type != "cuda":
-        raise ValueError(f"the fused pass runs on cuda or cpu, not "
-                         f"{x.device.type}")
-    return _launch(x, c, w, lanes, assign_only, return_labels, spec)
+    if x.device.type == "cuda":
+        return _launch(x, c, w, lanes, assign_only, return_labels, spec)
+    if x.is_meta:
+        return _launch(x, c, w, lanes, assign_only, return_labels, spec, True)
+    raise ValueError(f"the fused pass runs on cuda or cpu, not "
+                     f"{x.device.type}")

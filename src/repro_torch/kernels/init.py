@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref, specs
+from repro_torch.kernels import work as work_
 
 # Kernel launches since the last reset; only the CUDA path counts.
 launches = 0
@@ -42,6 +43,15 @@ launches = 0
 SOURCE = "sweeps.cu"
 # rows one block of the kernel scores (lloyd::BM): one potential partial each
 _BLOCK_ROWS = 128
+
+
+def work(n: int, d: int, nc: int) -> work_.Work:
+    """One sweep of ``n`` points against ``nc`` candidates: 2 n nc d f32
+    operations (the score product); the points, the candidates, the running
+    minimum, the uniforms and the weights read, the new minimum, the draw
+    (one byte a point) and the potential written."""
+    return work_.Work(2.0 * n * nc * d,
+                      work_.F32 * (n * d + nc * d + 3 * n + n + 1) + n)
 
 
 def _check(x, c, old_mind, u, w, valid):
@@ -113,7 +123,7 @@ def _kernel():
     return _fn
 
 
-def _launch(x, c, old_mind, u, pp, ell, w, valid, spec):
+def _launch(x, c, old_mind, u, pp, ell, w, valid, spec, shape_only=False):
     global launches
     n, d = x.shape
     nc = c.shape[0]
@@ -135,6 +145,9 @@ def _launch(x, c, old_mind, u, pp, ell, w, valid, spec):
     cn = torch.empty((nc,), dtype=torch.float32, device=dev)
     partial = torch.empty((-(-n // _BLOCK_ROWS),), dtype=torch.float32,
                           device=dev)
+    if shape_only:
+        work_.record("init_sweep", work(n, d, nc))
+        return new_mind, sampled, psi
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel()(x.data_ptr(), c.data_ptr(),
@@ -162,18 +175,24 @@ def init_sweep(points, cands, old_mind, uniforms, psi_prev, *, ell: float,
     ``ell`` is the oversampling factor (used as float32), ``cand_valid (c,)``
     bool masks candidates out (``None``: all valid), ``weights (n,)`` weight
     the potential and gate the draw (``None``: all ones).  ``spec``: the
-    kernel's ``KernelSpec`` (``DEFAULT_SPEC`` when ``None``).
+    kernel's ``KernelSpec`` (``DEFAULT_SPEC`` when ``None``).  A fake or
+    meta tensor takes the shape-only route (``kernels/work.py``).
     """
     spec = specs.coerce(spec)
     _check(points, cands, old_mind, uniforms, weights, cand_valid)
     dev = points.device
     pp = torch.as_tensor(psi_prev, dtype=torch.float32, device=dev).reshape(())
+    args = (points, cands, old_mind, uniforms, pp, float(ell), weights,
+            cand_valid, spec)
+    if work_.is_fake(points):
+        return _launch(*args, shape_only=True)
     if dev.type == "cpu":
         return init_sweep_plain(points, cands, old_mind, uniforms, pp,
                                 ell=ell, cand_valid=cand_valid,
                                 weights=weights, spec=spec)
-    if dev.type != "cuda":
-        raise ValueError(f"the init sweep runs on cuda or cpu, not "
-                         f"{dev.type}")
-    return _launch(points, cands, old_mind, uniforms, pp, float(ell),
-                   weights, cand_valid, spec)
+    if dev.type == "cuda":
+        return _launch(*args)
+    if points.is_meta:
+        return _launch(*args, shape_only=True)
+    raise ValueError(f"the init sweep runs on cuda or cpu, not "
+                     f"{dev.type}")

@@ -29,6 +29,14 @@ MAX_LANE_ROWS = 2 ** 31 - 256
 launches = 0
 
 
+def work(s: int, d: int, k: int, passes: int, skipped_rows: int = 0,
+         max_iters: int = 1):
+    """One solve of ``s`` rows: the whole-solve kernel's work over one lane
+    (``batch_resident.work``)."""
+    from repro_torch.kernels import batch_resident
+    return batch_resident.work(1, s, d, k, passes, skipped_rows, max_iters)
+
+
 def bound_block_rows(n_pad: int, bound_block: int | None = None) -> int:
     """Pruning block size for an ``n_pad``-row subset (``n_pad`` a multiple
     of 8): the largest multiple-of-8 divisor of ``n_pad`` that is at most

@@ -245,12 +245,14 @@ def _card_profile(index: int) -> DeviceProfile:
 def get_profile(device: torch.device | str | None = None) -> DeviceProfile:
     """The profile of ``device``: a CUDA device's is queried from the card
     once (``None``: the current CUDA device, or the CPU's without one); the
-    CPU's is the H100's (``CPU_PROFILE``)."""
+    CPU's, and a CUDA device's on a host with no card (a fake tensor's), is
+    the H100's (``CPU_PROFILE``)."""
     if device is None:
         dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     else:
         dev = torch.device(device)
-    if dev.type != "cuda":
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        # a fake CUDA tensor's device on a host without a card: the H100's
         return CPU_PROFILE
     index = torch.cuda.current_device() if dev.index is None else dev.index
     return _card_profile(index)
