@@ -165,6 +165,22 @@ empty-cluster reseeding -> min-ASSE S3) at full size through
      allocated on the card and no kernel launched; then the production dry
      run (16x16, ``batched`` with the reseed; ``--pods 2``) in a
      subprocess, each record's roofline terms, S2 with no collective;
+ 17a. [lm] (last): the LM serving path of the dense decoder families
+     (``launch/serve.py`` -> ``models/`` -> torch ops; no kernel of this
+     repository, so every launch count stays as it was): chunked against
+     dense attention in f32 at 2048 rows (minicpm-2b's and command-r-35b's
+     head shapes, causal and with a window); card against CPU on the five
+     dense smoke configs and command-r's with QK-norm, an untied head and
+     a wrapping ring of 6 (tokens equal, logits within rtol 1e-4, a repeat
+     with the same tokens); then minicpm-2b at full width and depth and
+     command-r-35b at full width cut to 2 layers, each in bf16 and f32,
+     from ``torch.Generator("cuda").manual_seed(0)``: 4 requests of 2048
+     prompt tokens and 32 greedy tokens, prefill ms, decode ms a token,
+     tokens/s and peak memory beside their bounds, each op's device time
+     in a bf16 decode step and prefill (torch.profiler), and the decode
+     steps' logits against one forward over prompt + generated tokens
+     (f32 within 1e-4 of the largest |logit|; bf16 the gap and the argmax
+     agreement above it);
  18. a ``{"kernels": [...]}`` line (the six kernels, their bf16
      variants and [tune]'s tile-width variants; ``launches_by_path`` with
      the distributed paths), the
@@ -347,6 +363,31 @@ RECOVER_ITERS = 2
 RECOVER_SNAPSHOT = 2
 RECOVER_CRASH_ROUND = 3
 RECOVER_SSE_RTOL = 1e-6
+# [lm]: the LM serving path (``launch/serve.py``): LM_BATCH requests of
+# LM_PROMPT-token prompts (above the attention's dense_below = 1024, so the
+# prefill runs the chunked path) and LM_NEW greedy tokens, at minicpm-2b's
+# full width and depth and at command-r-35b's full width cut to
+# LM_CR_LAYERS layers.  Decode steps against one forward over prompt +
+# generated tokens in float32 (TF32 off): the largest logit gap within
+# LM_F32_REL of the largest |logit| (the same sums in another order: matrix
+# products of 4 rows against 8192, one softmax over the cache against the
+# prefill's online softmax over chunks, through 40 layers).  Chunked
+# against dense attention in float32 at LM_PROMPT rows, causal and with a
+# window of LM_WINDOW: within LM_ATTN_TOL (the reference's own bar between
+# the two, tests/test_attention.py).  Card against CPU on the dense smoke
+# configs in float32: tokens equal, logits within LM_SMOKE_RTOL (atol that
+# times the largest |logit|).
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+LM_CR_LAYERS = 2
+LM_F32_REL = 1e-4
+LM_WINDOW = 1000
+LM_ATTN_TOL = 2e-5
+LM_SMOKE_RTOL = 1e-4
+# decode steps profiled a served config (the first ones after the prompt,
+# each at its own position), and ops printed a breakdown
+LM_PROFILE_STEPS, LM_PROFILE_TOP = 4, 6
+LM_DENSE = ("minicpm-2b", "command-r-35b", "command-r-plus-104b",
+            "deepseek-67b", "chameleon-34b")
 
 
 def fail(msg: str) -> int:
@@ -3943,6 +3984,315 @@ def phase_dryrun(torch, dist: dict) -> bool:
     return ok
 
 
+def op_times(torch, fn, reps: int) -> tuple[dict, float]:
+    """Device time of the kernels each torch op that ``fn`` calls launches,
+    from torch.profiler over ``reps`` calls after a warm-up -> ({op: ms a
+    call} (ops of one name summed), the host clock's ms a call over the same
+    profiled calls, from before the first launch to the synchronise after
+    the last; the profiler's own cost included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    out = {}
+    for e in prof.key_averages():
+        # the kernels' own rows, and CUPTI's "Command Buffer Full" (the
+        # host waiting on a full launch queue; no kernel of its own)
+        if e.device_type != DeviceType.CPU or e.key == "Command Buffer Full":
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        if t > 0:
+            out[e.key] = out.get(e.key, 0.0) + t / reps / 1e3
+    return out, wall_ms
+
+
+def lm_bounds(cfg, model, batch: int, s0: int, new: int):
+    """The least times of one serving call -> (prefill ms, the mean decode
+    step's ms).  Prefill: 2 operations a matrix weight of the layers a
+    prompt token, the head's 2 V d once a sequence (a prefill keeps the
+    last position's logits; the embedding lookup does no arithmetic), and
+    the causal attention's 4 H Dh a (query, key) pair a layer (S (S + 1) / 2
+    pairs a sequence, or the window's), at the peak of the model dtype (bf16
+    tensor cores, or f32 outside them).  A decode step: every weight it
+    reads (an untied embedding table only its B rows) and the live cache
+    (keys and values of the positions it attends to, every layer) once at
+    the memory rate."""
+    elt = 2 if cfg.dtype == "bfloat16" else 4
+    window = cfg.window if cfg.attention == "sliding" else None
+    pairs = sum(min(i + 1, window or i + 1) for i in range(s0))
+    head = cfg.vocab_size * cfg.d_model
+    layer_matrices = sum(p.numel() for p in model.groups.parameters()
+                         if p.dim() >= 2)
+    flops = (2 * layer_matrices * batch * s0 + 2 * head * batch
+             + cfg.num_layers * batch * 4 * cfg.num_heads * cfg.head_dim_
+             * pairs)
+    peak = PEAK_BF16_FLOPS if cfg.dtype == "bfloat16" else PEAK_F32_FLOPS
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    if not cfg.tie_embeddings:
+        weight_bytes -= (cfg.vocab_size - batch) * cfg.d_model \
+            * model.embed.element_size()
+    per_pos = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim_ * elt \
+        * batch
+    steps = [weight_bytes + per_pos * min(s0 + j + 1, window or s0 + j + 1)
+             for j in range(new)]
+    return flops / peak * 1e3, sum(steps) / new / PEAK_BYTES * 1e3
+
+
+def lm_attention(torch, smi: str) -> bool:
+    """Chunked against dense attention on the card in f32 at LM_PROMPT rows,
+    one layer's shapes of minicpm-2b (MHA 36 x 64) and command-r-35b (GQA
+    64 / 8 x 128), causal and with a window, q and kv chunks of the
+    configs (512, 1024); within LM_ATTN_TOL."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import attention
+    ok = True
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for arch in ("minicpm-2b", "command-r-35b"):
+        cfg = ARCHS[arch]
+        shape = (LM_BATCH, LM_PROMPT)
+        q = torch.randn(shape + (cfg.num_heads, cfg.head_dim_),
+                        generator=gen, device="cuda")
+        k, v = (torch.randn(shape + (cfg.num_kv_heads, cfg.head_dim_),
+                            generator=gen, device="cuda") for _ in "kv")
+        for window in (None, LM_WINDOW):
+            want = attention.dense_attention(q, k, v, window=window)
+            got = attention.attention(q, k, v, window=window,
+                                      q_chunk=cfg.q_chunk,
+                                      kv_chunk=cfg.kv_chunk)
+            err = float((got - want).abs().max())
+            good = bool(torch.allclose(got, want, rtol=LM_ATTN_TOL,
+                                       atol=LM_ATTN_TOL))
+            ms_c = cuda_time_ms(lambda: attention.chunked_attention(
+                q, k, v, window=window, q_chunk=cfg.q_chunk,
+                kv_chunk=cfg.kv_chunk), reps=3)
+            ms_d = cuda_time_ms(lambda: attention.dense_attention(
+                q, k, v, window=window), reps=3)
+            print(f"[lm] attention {arch} {tuple(q.shape)} kv "
+                  f"{tuple(k.shape)} window {window}: chunked against "
+                  f"dense max abs err {err:.3e} ({'ok' if good else 'FAIL'}"
+                  f", tol {LM_ATTN_TOL}); chunked {ms_c:.3f} ms, dense "
+                  f"{ms_d:.3f} ms | {smi}", flush=True)
+            ok = ok and good
+        del q, k, v
+    return ok
+
+
+def lm_smoke(torch) -> bool:
+    """Card against CPU on each dense smoke config in f32 (and command-r's
+    with every switch on: QK-norm, an untied head, a sliding window of 6
+    whose ring wraps): the port's init from a CPU generator, the same
+    weights on the card; identical greedy tokens, logits within
+    LM_SMOKE_RTOL (atol that times the largest |logit|), and a repeat run
+    on the card with the same tokens."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    cfgs = [SMOKE_ARCHS[a] for a in LM_DENSE] + [dataclasses.replace(
+        SMOKE_ARCHS["command-r-35b"], qk_norm=True, tie_embeddings=False,
+        attention="sliding", window=6)]
+    ok = True
+    for cfg in cfgs:
+        gen = torch.Generator().manual_seed(0)
+        model = registry.init_params(cfg, gen, "cpu")
+        prompt = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+        want_t, want_l = serve.greedy_generate(cfg, model, prompt, max_new=8,
+                                               return_logits=True)
+        card = copy.deepcopy(model).to("cuda")
+        runs = [serve.greedy_generate(cfg, card, prompt.cuda(), max_new=8,
+                                      return_logits=True) for _ in range(2)]
+        tok, lg = runs[0][0].cpu(), runs[0][1].cpu()
+        scale = float(want_l.abs().max())
+        err = float((lg - want_l).abs().max())
+        good = (torch.equal(tok, want_t)
+                and torch.equal(runs[1][0], runs[0][0])
+                and bool(torch.allclose(lg, want_l, rtol=LM_SMOKE_RTOL,
+                                        atol=LM_SMOKE_RTOL * scale)))
+        print(f"[lm] card against CPU, {cfg.name}"
+              f"{' (switched, window 6)' if cfg.window else ''}: tokens "
+              f"{'equal' if torch.equal(tok, want_t) else 'DIFFER'}, repeat "
+              f"{'equal' if torch.equal(runs[1][0], runs[0][0]) else 'DIFFERS'}"
+              f", logits max abs err {err:.3e} of |logit| {scale:.3e} "
+              f"({'ok' if good else 'FAIL'})", flush=True)
+        ok = ok and good
+    return ok
+
+
+def lm_serve(torch, cfg, tag: str, smi: str) -> bool:
+    """Serve LM_BATCH random requests of LM_PROMPT tokens and LM_NEW greedy
+    tokens through ``launch.serve`` on the card, the port's init from
+    ``torch.Generator("cuda").manual_seed(0)``: the prefill and the decode
+    loop timed apart (host clock around synchronised work, after a warm-up
+    run) and peak memory, beside their bounds; the tokens of three runs
+    equal (the warm-up, the timed one, ``greedy_generate``); the decode steps'
+    logits against one forward over prompt + generated tokens (f32: the gap
+    within LM_F32_REL of the largest |logit|; bf16: the gap reported and
+    the share of argmaxes that agree where the top-two margin is above it);
+    in both, every step whose margin is above twice the gap must agree.
+    In bfloat16, the device time of each op's kernels (torch.profiler) in
+    the first LM_PROFILE_STEPS decode steps (each at its own position, the
+    tokens the warm-up chose) and in a prefill, and the device's busy share
+    of the host-clock time of those same profiled calls.
+    """
+    from repro_torch.launch import serve
+    from repro_torch.models import registry, transformer
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = registry.init_params(cfg, gen, "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    b_pre, b_dec = lm_bounds(cfg, model, LM_BATCH, LM_PROMPT, LM_NEW)
+    step = serve.make_decode_step(cfg)
+
+    def serve_split():
+        """greedy_generate's prefill and decode loop, each timed."""
+        t0 = time.perf_counter()
+        logits, caches = serve.prefill(cfg, model, prompt,
+                                       LM_PROMPT + LM_NEW)
+        sync()
+        t1 = time.perf_counter()
+        out = [prompt]
+        for t in range(LM_PROMPT, LM_PROMPT + LM_NEW):
+            out.append(torch.argmax(logits, dim=-1)[:, None])
+            step_logits, caches = step(model, caches, out[-1], t)
+            logits = step_logits[:, -1]
+        sync()
+        kv = sum(c.numel() * c.element_size() for g in caches
+                 for c in g.values())
+        return torch.cat(out, 1), t1 - t0, time.perf_counter() - t1, kv
+
+    first = serve_split()[0]          # warm-up: the first calls at the shapes
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    split, prefill_s, decode_s, kv_bytes = serve_split()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    tokens, seen = serve.greedy_generate(cfg, model, prompt, max_new=LM_NEW,
+                                         return_logits=True)
+    sync()
+    gen_s = time.perf_counter() - t0
+    print(f"[lm] {tag} ({cfg.dtype}, {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, vocab "
+          f"{cfg.vocab_size}, {n_params:,} params, {w_bytes / 1e9:.2f} GB): "
+          f"{LM_BATCH} requests x {LM_PROMPT} prompt tokens + {LM_NEW} new: "
+          f"prefill {prefill_s * 1e3:.2f} ms (bound {b_pre:.2f} ms, "
+          f"operations), decode {decode_s * 1e3 / LM_NEW:.3f} ms a token "
+          f"(bound {b_dec:.3f} ms, bytes: the weights and the live cache "
+          f"once), {LM_BATCH * LM_NEW / decode_s:.1f} tokens/s decoding, "
+          f"{LM_BATCH * LM_NEW / gen_s:.1f} tokens/s end to end "
+          f"(greedy_generate {gen_s * 1e3:.1f} ms); peak memory {peak / 1e9:.2f} GB "
+          f"({(peak - base) / 1e9:.2f} GB above the weights and inputs; KV "
+          f"cache {kv_bytes / 1e9:.2f} GB) | {smi}", flush=True)
+
+    # device time by op, in the served dtype: the first decode steps (a
+    # repeat rewrites the same cache slots with the same keys and values)
+    # and a prefill
+    by_op = {}
+    if cfg.dtype == "bfloat16":
+        _, caches = serve.prefill(cfg, model, prompt, LM_PROMPT + LM_NEW)
+
+        def decode_steps():
+            for t in range(LM_PROMPT, LM_PROMPT + LM_PROFILE_STEPS):
+                step(model, caches, first[:, t:t + 1], t)
+        ms, wall_ms = op_times(torch, decode_steps, reps=1)
+        by_op["decode step"] = (
+            {k: v / LM_PROFILE_STEPS for k, v in ms.items()},
+            wall_ms / LM_PROFILE_STEPS, decode_s / LM_NEW * 1e3)
+        del caches
+        ms, wall_ms = op_times(torch, lambda: serve.prefill(
+            cfg, model, prompt, LM_PROMPT + LM_NEW), reps=1)
+        by_op["prefill"] = (ms, wall_ms, prefill_s * 1e3)
+    for what, (ms, wall_ms, plain_ms) in by_op.items():
+        busy = sum(ms.values())
+        top = sorted(ms.items(), key=lambda kv: -kv[1])[:LM_PROFILE_TOP]
+        print(f"[lm] {tag} ({cfg.dtype}): {what}: device {busy:.3f} ms of "
+              f"{wall_ms:.3f} ms on the host clock, the same profiled calls "
+              f"({busy / wall_ms:.1%} busy; unprofiled, the mean of the "
+              f"timed run, {plain_ms:.3f} ms; "
+              f"torch.profiler, {len(ms)} ops); the largest: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in top), flush=True)
+
+    full, _, _ = transformer.forward(model, tokens, cfg)
+    fwd = full[:, LM_PROMPT - 1:].float()
+    del full, model
+    finite = bool(torch.isfinite(seen).all() and torch.isfinite(fwd).all())
+    shape_ok = (tokens.shape == (LM_BATCH, LM_PROMPT + LM_NEW)
+                and torch.equal(tokens[:, :LM_PROMPT], prompt)
+                and int(tokens.min()) >= 0
+                and int(tokens.max()) < cfg.vocab_size
+                and torch.equal(tokens[:, LM_PROMPT:],
+                                seen[:, :-1].argmax(-1)))
+    repeat = torch.equal(tokens, first) and torch.equal(tokens, split)
+    gap = float((seen - fwd).abs().max())
+    scale = float(fwd.abs().max())
+    top2 = fwd.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    agree = seen.argmax(-1) == fwd.argmax(-1)
+    above, sure = margin > gap, margin > 2 * gap
+    n_above, n_sure = int(above.sum()), int(sure.sum())
+    share = float(agree[above].float().mean()) if n_above else float("nan")
+    sure_ok = bool(agree[sure].all())
+    gap_ok = cfg.dtype != "float32" or gap <= LM_F32_REL * scale
+    good = finite and shape_ok and repeat and sure_ok and gap_ok
+    print(f"[lm] {tag} ({cfg.dtype}): decode steps against one forward over "
+          f"the {LM_PROMPT + LM_NEW} tokens: largest logit gap {gap:.4e} "
+          f"(largest |logit| {scale:.4e}, "
+          + (f"tol {LM_F32_REL * scale:.4e}, " if cfg.dtype == "float32"
+             else "") +
+          f"ratio {gap / scale:.3e}); argmax agrees on {int(agree.sum())} of "
+          f"{agree.numel()} steps, {share:.4f} of the {n_above} whose top-two "
+          f"margin is above the gap, {int(agree[sure].sum())} of the "
+          f"{n_sure} above twice the gap; repeat "
+          f"{'same tokens' if repeat else 'OTHER TOKENS'}; "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    return good
+
+
+def phase_lm(torch, smi: str) -> bool:
+    """[lm] (last): the LM serving path of the dense decoder families
+    (``repro_torch.launch.serve``, ``models``, ``configs``) on the card.
+    Chunked against dense attention; card against CPU on the dense smoke
+    configs; then minicpm-2b at its full width and depth and command-r-35b
+    at its full width cut to LM_CR_LAYERS layers, each in bfloat16 (its
+    config's dtype) and float32, serving LM_BATCH requests (``lm_serve``).
+    The LM stack reaches no kernel of this repository: every launch count
+    stays as it was."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import ARCHS
+    t_phase = time.perf_counter()
+    counts0 = read_counts()
+    ok = lm_attention(torch, smi)
+    ok = lm_smoke(torch) and ok
+    minicpm = ARCHS["minicpm-2b"]
+    cr = dataclasses.replace(ARCHS["command-r-35b"], num_layers=LM_CR_LAYERS)
+    for cfg, tag in ((minicpm, "minicpm-2b"),
+                     (cr, f"command-r-35b, cut to {LM_CR_LAYERS} layers")):
+        for dtype in ("bfloat16", "float32"):
+            ok = lm_serve(torch, dataclasses.replace(cfg, dtype=dtype), tag,
+                          smi) and ok
+            gc.collect()
+            torch.cuda.empty_cache()
+    if read_counts() != counts0:
+        print("[lm] a kernel of the repository was launched", flush=True)
+        ok = False
+    print(f"[lm] the phase took {time.perf_counter() - t_phase:.1f} s"
+          + ("" if ok else "; FAIL"), flush=True)
+    return ok
+
+
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -4036,6 +4386,8 @@ def main() -> int:
         return fail("distributed pipeline")
     if not phase_dryrun(torch, dist):
         return fail("dry run")
+    if not phase_lm(torch, smi):
+        return fail("LM serving path")
     variants = [{"name": r["name"] + "[bf16]", "route": r["route"],
                  "source": r["source"], "replaces": r["replaces"],
                  **bf16[r["name"]]}

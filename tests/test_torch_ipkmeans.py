@@ -165,7 +165,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels.specs, repro_torch.core.io_model, "
             "repro_torch.core.serve, repro_torch.kernels.tuning, "
             "repro_torch.launch.serve_kmeans, repro_torch.data, "
-            "repro_torch.checkpoint, repro_torch.distributed.runtime\n"
+            "repro_torch.checkpoint, repro_torch.distributed.runtime, "
+            "repro_torch.configs, repro_torch.models, "
+            "repro_torch.models.attention, repro_torch.models.common, "
+            "repro_torch.models.transformer, repro_torch.models.registry, "
+            "repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
